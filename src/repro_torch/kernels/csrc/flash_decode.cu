@@ -1,0 +1,349 @@
+// Grouped split-KV flash decode for Hopper (sm_90a), bf16 in, f32 math.
+//
+// Replaces the TPU kernel repro/kernels/flash_decode.py::flash_decode_pallas
+// (_decode_kernel) and its log-sum-exp epilogue combine_partials.
+//
+// What bounds it on the H100: memory.  One query token per row meets
+// every live K/V byte once, about 2 FLOP per byte read, far below the
+// ~295 FLOP/byte at which the tensor cores become the limit.  The least
+// time is the live K/V bytes over 3.35 TB/s.
+//
+// What the design does about it:
+//  * The G = H / K query heads that share one KV head ride together, so
+//    each K/V row is read from device memory once and used by all G heads
+//    (the TPU kernel's (G, d) q tile).  A key whose position is masked is
+//    not read at all.
+//  * The key axis is split across blocks (grid = splits x K x B): at the
+//    serving shape B x K is only 4, so the wrapper picks the split length
+//    to put a few hundred blocks on the 132 SMs.  The TPU ran its splits in
+//    sequence; here they run in parallel and a second, small kernel in this
+//    file does the cross-block log-sum-exp combine.
+//  * In a block, each warp takes groups of 4 keys and keeps their 4 row
+//    loads in flight at once (the loop is latency-bound otherwise); a lane
+//    owns d/32 consecutive elements of a row and loads them with one vector
+//    load (16 bytes at d = 256).  The G dot products are reduced with warp
+//    shuffles.  Scores live in shared memory, so the softmax of a split is
+//    exact (max first, then exp), with no running rescale.
+//  * The combine runs one block per (row, q head), enough to keep the loads
+//    of all splits' partials in flight.
+//  * The ragged tail is handled by the split length, not by padding.  A
+//    split with no valid key writes (m = NEG_INF, l = 0) and drops out of
+//    the combine; a row with no valid key anywhere comes out as zeros.
+//
+// Numerics follow the reference: f32 scores, tanh softcap, masked score
+// NEG_INF, p = exp(s - m) in f32 for l and rounded to bf16 for the PV sum.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegInf = -1e30f;
+
+template <int VEC>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
+  // VEC consecutive bf16 values, loaded with one vector instruction
+  if constexpr (VEC == 8) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else if constexpr (VEC == 4) {
+    uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  } else {
+    static_assert(VEC == 2, "head_dim must be 64, 128 or 256");
+    float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = f.x;
+    out[1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ bool key_valid(int qp, int kp, int causal, int window) {
+  return kp >= 0 && (!causal || qp >= kp) && (qp - kp) < window;
+}
+
+// One block per (split, kv head, row).  Shared memory: scores/probabilities
+// [G][chunk], the cross-warp reduction buffer [G][D], key validity [chunk].
+template <int D, int G>
+__global__ void __launch_bounds__(kThreads)
+decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const int* __restrict__ q_pos,
+                      const int* __restrict__ k_pos,
+                      float* __restrict__ o_part, float* __restrict__ m_part,
+                      float* __restrict__ l_part, int T, int K, int chunk,
+                      int causal, int window, float softcap, float scale) {
+  constexpr int VEC = D / 32;
+  constexpr int U = 4;                 // keys in flight per warp
+  extern __shared__ float smem[];
+  float* s_buf = smem;                 // [G][chunk]
+  float* red = smem + G * chunk;       // [G][D]
+  int* live = reinterpret_cast<int*>(red + G * D);   // [chunk]
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t0 = split * chunk;
+  const int n = min(chunk, T - t0);
+  const int qp = q_pos[b];
+  const int H = K * G;
+  const size_t row_stride = (size_t)K * D;
+  const __nv_bfloat16* kbase = k + ((size_t)b * T + t0) * row_stride + (size_t)kh * D + lane * VEC;
+  const __nv_bfloat16* vbase = v + ((size_t)b * T + t0) * row_stride + (size_t)kh * D + lane * VEC;
+
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    live[i] = key_valid(qp, k_pos[(size_t)b * T + t0 + i], causal, window);
+  __syncthreads();
+
+  // phase A: scores of the split's keys for all G heads; each warp keeps U
+  // row loads in flight, and a masked key is never read
+  {
+    float qreg[G][VEC];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      load_row<VEC>(q + ((size_t)b * H + kh * G + g) * D + lane * VEC, qreg[g]);
+    for (int i0 = warp * U; i0 < n; i0 += kWarps * U) {
+      float kr[U][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i0 + u < n && live[i0 + u])
+          load_row<VEC>(kbase + (size_t)(i0 + u) * row_stride, kr[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u;
+        if (i >= n) break;
+        if (!live[i]) {
+          if (lane < G) s_buf[lane * chunk + i] = -INFINITY;
+          continue;
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float acc = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc += qreg[g][e] * kr[u][e];
+          acc = warp_sum(acc) * scale;
+          if (softcap > 0.f) acc = softcap * tanhf(acc / softcap);
+          if (lane == 0) s_buf[g * chunk + i] = acc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase B: exact softmax statistics of the split, one warp per head
+  for (int g = warp; g < G; g += kWarps) {
+    float* row = s_buf + g * chunk;
+    float m = kNegInf;
+    for (int i = lane; i < n; i += 32) m = fmaxf(m, row[i]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int i = lane; i < n; i += 32) {
+      float p = expf(row[i] - m);      // masked: exp(-inf) = 0
+      l += p;
+      row[i] = __bfloat162float(__float2bfloat16(p));   // p in V's dtype
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      size_t idx = (((size_t)b * K + kh) * splits + split) * G + g;
+      m_part[idx] = m;
+      l_part[idx] = l;
+    }
+  }
+  __syncthreads();
+
+  // phase C: acc[g] = sum_t p[g][t] v[t], then a fixed-order warp reduction
+  float acc[G][VEC];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+  for (int i0 = warp * U; i0 < n; i0 += kWarps * U) {
+    float vr[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u < n && live[i0 + u])
+        load_row<VEC>(vbase + (size_t)(i0 + u) * row_stride, vr[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u;
+      if (i >= n) break;
+      if (!live[i]) continue;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = s_buf[g * chunk + i];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] += p * vr[u][e];
+      }
+    }
+  }
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float* dst = red + g * D + lane * VEC + e;
+          *dst = (w == 0 ? 0.f : *dst) + acc[g][e];
+        }
+    }
+    __syncthreads();
+  }
+  float* out = o_part + (((size_t)b * K + kh) * splits + split) * G * D;
+  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) out[idx] = red[idx];
+}
+
+// Block-wide reduction over blockDim.x threads (a multiple of 32, <= 1024).
+template <bool kMax>
+__device__ float block_reduce(float x, float* scratch) {
+  x = kMax ? warp_max(x) : warp_sum(x);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = blockDim.x / 32;
+  __syncthreads();                     // scratch free from a previous use
+  if (lane == 0) scratch[warp] = x;
+  __syncthreads();
+  x = scratch[0];
+  for (int w = 1; w < nw; ++w) x = kMax ? fmaxf(x, scratch[w]) : x + scratch[w];
+  return x;
+}
+
+// One block of D threads per (row, kv head, q head of the group):
+// log-sum-exp combine of the splits.  The split weights are computed once
+// into shared memory; thread e then sums column e of the partials.
+__global__ void combine_kernel(const float* __restrict__ o_part,
+                               const float* __restrict__ m_part,
+                               const float* __restrict__ l_part,
+                               __nv_bfloat16* __restrict__ out, int splits,
+                               int G, int D) {
+  extern __shared__ float w[];         // [splits]
+  __shared__ float scratch[32];
+  const int g = blockIdx.x % G, bk = blockIdx.x / G;   // bk = b * K + kh
+  const float* m = m_part + (size_t)bk * splits * G + g;
+  const float* l = l_part + (size_t)bk * splits * G + g;
+  float mx = kNegInf;
+  for (int s = threadIdx.x; s < splits; s += blockDim.x) mx = fmaxf(mx, m[s * G]);
+  const float m_star = block_reduce<true>(mx, scratch);
+  float ls = 0.f;
+  for (int s = threadIdx.x; s < splits; s += blockDim.x) {
+    const float alpha = expf(m[s * G] - m_star);
+    w[s] = alpha;
+    ls += l[s * G] * alpha;
+  }
+  const float l_star = block_reduce<false>(ls, scratch);  // also publishes w
+  const int e = threadIdx.x;
+  const float* o = o_part + ((size_t)bk * splits * G + g) * D + e;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < splits; ++s) acc += o[(size_t)s * G * D] * w[s];
+  out[((size_t)bk * G + g) * D + e] = __float2bfloat16(acc / fmaxf(l_star, 1e-30f));
+}
+
+template <int D, int G>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* q_pos, const void* k_pos, void* o_part,
+                   void* m_part, void* l_part, void* out, int B, int T, int K,
+                   int chunk, int splits, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  const size_t smem =
+      ((size_t)G * chunk + (size_t)G * D) * sizeof(float) + chunk * sizeof(int);
+  static size_t smem_set = 0;          // per instantiation: raise once
+  cudaError_t err;
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(decode_partial_kernel<D, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  dim3 grid(splits, K, B);
+  decode_partial_kernel<D, G><<<grid, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)q_pos, (const int*)k_pos,
+      (float*)o_part, (float*)m_part, (float*)l_part, T, K, chunk, causal,
+      window, softcap, 1.0f / sqrtf((float)D));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  combine_kernel<<<B * K * G, D, splits * sizeof(float), stream>>>(
+      (const float*)o_part, (const float*)m_part, (const float*)l_part,
+      (__nv_bfloat16*)out, splits, G, D);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
+                     const void* q_pos, const void* k_pos, void* o_part,
+                     void* m_part, void* l_part, void* out, int B, int T,
+                     int K, int chunk, int splits, int causal, int window,
+                     float softcap, cudaStream_t stream) {
+#define REPRO_G(g)                                                         \
+  case g:                                                                  \
+    return launch<D, g>(q, k, v, q_pos, k_pos, o_part, m_part, l_part, out, \
+                        B, T, K, chunk, splits, causal, window, softcap,   \
+                        stream);
+  switch (G) {
+    REPRO_G(1)
+    REPRO_G(2)
+    REPRO_G(4)
+    REPRO_G(8)
+    REPRO_G(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_G
+}
+
+}  // namespace
+
+// q (B, H, D) bf16; k, v (B, T, K, D) bf16 contiguous; q_pos (B,) int32;
+// k_pos (B, T) int32; o_part (B, K, splits, G, D), m_part and l_part
+// (B, K, splits, G) f32 scratch; out (B, H, D) bf16.  window > 0;
+// softcap <= 0 means none.  Returns a cudaError_t (0 = launched).
+extern "C" int repro_flash_decode_bf16(
+    const void* q, const void* k, const void* v, const void* q_pos,
+    const void* k_pos, void* o_part, void* m_part, void* l_part, void* out,
+    int B, int T, int K, int G, int D, int chunk, int splits, int causal,
+    int window, float softcap, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 64:
+      return launch_g<64>(G, q, k, v, q_pos, k_pos, o_part, m_part, l_part,
+                          out, B, T, K, chunk, splits, causal, window,
+                          softcap, s);
+    case 128:
+      return launch_g<128>(G, q, k, v, q_pos, k_pos, o_part, m_part, l_part,
+                           out, B, T, K, chunk, splits, causal, window,
+                           softcap, s);
+    case 256:
+      return launch_g<256>(G, q, k, v, q_pos, k_pos, o_part, m_part, l_part,
+                           out, B, T, K, chunk, splits, causal, window,
+                           softcap, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,34 @@
+"""Attention dispatch on the tensor's device.
+
+A CUDA tensor goes to the hand-written kernel, which launches or
+raises; a CPU tensor goes to the kernel's plain PyTorch version in
+``kernels.ref``.  There is no override and no fallback between the two.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_decode import flash_decode
+
+
+def _on_cuda(t) -> bool:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def flash_attention(q, k, v, q_pos, k_pos, *, softcap=None):
+    """Causal global attention.  q: (B, S, H, d); k, v: (B, T, K, d) at
+    the native kv-head count (H % K == 0); q_pos: (B, S); k_pos: (B, T)
+    with -1 = empty.
+
+    One query token per row (S == 1, the decode tick) takes the grouped
+    split-KV decode; longer queries the flash forward."""
+    if q.shape[1] == 1:
+        if _on_cuda(q):
+            return flash_decode(q, k, v, q_pos.reshape(-1), k_pos,
+                                softcap=softcap)
+        return _ref.flash_decode_ref(q, k, v, q_pos, k_pos, softcap=softcap)
+    if _on_cuda(q):
+        return flash_attention_fwd(q, k, v, q_pos, k_pos, softcap=softcap)
+    return _ref.flash_attention_ref(q, k, v, q_pos, k_pos, softcap=softcap)
