@@ -49,7 +49,7 @@ def _check(name, t, dtype, shape, device):
 
 
 def flash_decode(q, k, v, q_pos, k_pos, *, causal=True, window=None,
-                 softcap=None, chunk=None):
+                 softcap=None):
     """q: (B, 1, H, d) bf16; k, v: (B, T, K, d) bf16; q_pos: (B,) int32;
     k_pos: (B, T) int32 with -1 = empty.  Returns (B, 1, H, d) bf16."""
     if q.device.type != "cuda":
@@ -71,9 +71,8 @@ def flash_decode(q, k, v, q_pos, k_pos, *, causal=True, window=None,
         raise ValueError(f"window must be > 0 and softcap > 0 "
                          f"(got {window}, {softcap})")
     G = H // K
-    if chunk is None:
-        chunk = split_chunk(
-            B, K, T, torch.cuda.get_device_properties(dev).multi_processor_count)
+    chunk = split_chunk(
+        B, K, T, torch.cuda.get_device_properties(dev).multi_processor_count)
     splits = -(-T // chunk)
     o_part = torch.empty((B, K, splits, G, d), dtype=torch.float32, device=dev)
     m_part = torch.empty((B, K, splits, G), dtype=torch.float32, device=dev)

@@ -81,11 +81,17 @@ class DecoderModel:
                 "pos": torch.full(kv[:3], -1, dtype=torch.int32,
                                   device=self.device)}
 
-    def _block(self, p, h, positions, cache_kv=None):
+    def _block(self, p, h, positions, cache_kv=None, pos_row=None):
+        """One layer.  With ``cache_kv = (k, v, pos)`` (decode) the new K/V
+        are projected from the same normed input and written at
+        ``pos_row`` before attention reads the cache."""
         cfg = self.cfg
-        a, kv = L.attention(p["attn"], L.rms_norm(h, p["ln1"]["scale"],
-                                                  cfg.rms_eps),
-                            cfg, positions=positions, cache_kv=cache_kv)
+        x = L.rms_norm(h, p["ln1"]["scale"], cfg.rms_eps)
+        if cache_kv is not None:
+            k_new, v_new = L.project_kv(p["attn"], x, cfg, positions)
+            _cache_write(*cache_kv, k_new, v_new, pos_row)
+        a, kv = L.attention(p["attn"], x, cfg, positions=positions,
+                            cache_kv=cache_kv)
         h = h + a
         h = h + L.mlp(p["mlp"], L.rms_norm(h, p["ln2"]["scale"], cfg.rms_eps),
                       cfg)
@@ -141,13 +147,10 @@ class DecoderModel:
         positions = positions.to(torch.int32).contiguous()
         x = L.embed(params["embed"], tokens, cfg)
         for l in range(cfg.num_layers):
-            p = _layer(params["layers"], l)
-            kc, vc, pc = cache["k"][l], cache["v"][l], cache["pos"][l]
-            k_new, v_new = L.project_kv(
-                p["attn"], L.rms_norm(x, p["ln1"]["scale"], cfg.rms_eps),
-                cfg, positions)
-            _cache_write(kc, vc, pc, k_new, v_new, pos_row)
-            x, _ = self._block(p, x, positions, cache_kv=(kc, vc, pc))
+            x, _ = self._block(
+                _layer(params["layers"], l), x, positions,
+                cache_kv=(cache["k"][l], cache["v"][l], cache["pos"][l]),
+                pos_row=pos_row)
         cache["len"] = cur + 1
         x = L.rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
         return L.unembed(params["embed"], x, cfg)[:, 0], cache
