@@ -18,7 +18,19 @@ Phases, each printing its own lines:
   5. serving  Engine(slots=4, prefill_len=3072, cache_len=3328) serves 6
               greedy requests; the kernels' launch counts must match the path,
               co-batched tokens must equal each request run alone, and
-              TTFT / TPOT / decode tok/s are printed.
+              TTFT / TPOT / decode tok/s are printed;
+  6. paged    the same engine with block_size=16 serves 8 greedy requests,
+              four of them sharing a 2048-token prompt: exact prefix-cache
+              stats and launch counts (paged decode per tick, flash forward
+              per join), no block held after the drain, tokens equal to the
+              contiguous engine's on the same mix; then a request on a
+              recycled block must equal the same request on a fresh engine.
+
+The kernel phase also holds the paged decode (flash_decode_paged) against
+its plain version on pools read through shuffled tables (shared blocks, -1
+entries, block sizes 8/16/64), requires it to be bit-equal to flash_decode
+on the gathered view, and rejects two paged negative controls (an unmapped
+entry read as block 0, a recycled block's stale positions left live).
 
 Exits nonzero, uncaught, on any failed check, and when no CUDA device is
 present.  The last line is {"ok": true, "device": {...}}.
@@ -31,6 +43,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -50,6 +63,11 @@ KERNEL_TOL = (f"{KERNEL_RTOL}|ref| + min({KERNEL_ATOL}, "
 MODEL_ATOL = MODEL_RTOL = 5e-2     # decode vs prefill logits, 18 bf16 layers
 MARGIN_TOL = 5e-2                  # top-2 logit margin below which ties may flip
 SERVE_PROMPTS = (5, 17, 64, 300, 1000, 3072)
+# paged serving: a shared 2048-token prompt ("sys", 128 blocks of 16) with
+# its own tail, or unrelated tokens, in this order
+PAGED_MIX = (("sys", 1000), ("sys", 5), (None, 17), (None, 64), ("sys", 300),
+             (None, 3072), ("sys", 17), (None, 5))
+SYS_LEN = 2048
 
 
 def check(cond, msg):
@@ -314,6 +332,154 @@ def phase_kernels():
     return results
 
 
+def _paged_inputs(B, H, K, d, BS, MAXB, lengths, *, share=0, unmap=(),
+                  seed=0):
+    """Random pools of NB = B x MAXB blocks behind tables drawn from a
+    permutation of the pool: row b maps ceil(len / BS) blocks holding its
+    positions 0..len-1 (-1 past len), and -1 past them.  Row 1's first
+    ``share`` entries are row 0's blocks (a prefix hit); each (row, entry)
+    of ``unmap`` is -1 inside a live range.  Pool block 0 is row 0's entry
+    40, and the blocks no table maps hold random live positions."""
+    g = torch.Generator().manual_seed(seed)
+    NB = B * MAXB
+    q = torch.randn(B, 1, H, d, generator=g).bfloat16()
+    k_pool = torch.randn(NB, BS, K, d, generator=g).bfloat16()
+    v_pool = torch.randn(NB, BS, K, d, generator=g).bfloat16()
+    kp_pool = torch.randint(0, MAXB * BS, (NB, BS), generator=g,
+                            dtype=torch.int32)
+    perm = torch.randperm(NB, generator=g)
+    i0 = int((perm == 0).nonzero())
+    perm[i0], perm[40] = perm[40].clone(), 0
+    bt = torch.full((B, MAXB), -1, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        nb = -(-n // BS)
+        bt[b, :nb] = perm[used:used + nb]
+        used += nb
+        for j in range(nb):
+            p = torch.arange(j * BS, (j + 1) * BS, dtype=torch.int32)
+            kp_pool[bt[b, j]] = torch.where(p < n, p, -1)
+    bt[1, :share] = bt[0, :share]
+    for r, j in unmap:
+        bt[r, j] = -1
+    q_pos = torch.tensor([max(n, 1) for n in lengths], dtype=torch.int32)
+    return [t.cuda() for t in (q, k_pool, v_pool, q_pos, kp_pool, bt)]
+
+
+def _gather_sdpa(q, k_pool, v_pool, q_pos, kp_pool, bt):
+    """Paged decode by library calls: an index_select gather of the tables'
+    blocks, then scaled_dot_product_attention (no single PyTorch call
+    computes attention through block tables)."""
+    B, MAXB = bt.shape
+    NB, BS, K, d = k_pool.shape
+    flat = bt.reshape(-1).clamp(min=0)
+    k = k_pool.index_select(0, flat).view(B, MAXB * BS, K, d).transpose(1, 2)
+    v = v_pool.index_select(0, flat).view(B, MAXB * BS, K, d).transpose(1, 2)
+    kp = kp_pool.index_select(0, flat).view(B, MAXB * BS)
+    live = (bt.repeat_interleave(BS, 1) >= 0) & (kp >= 0) \
+        & (kp <= q_pos[:, None])
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=live[:, None, None, :],
+        enable_gqa=True)
+
+
+def phase_paged_kernel():
+    """flash_decode_paged against its plain version, bit-equal to
+    flash_decode on the gathered view, two negative controls, timing."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged,
+                                                  split_chunk)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    engine = (4, 8, 1, 256)
+    cases = [  # (name, (B, H, K, d), BS, MAXB, lengths, inputs kw, kernel kw)
+        ("engine B4 H8 K1 d256 BS16 MAXB208", engine, 16, 208,
+         [3328, 1000, 0, 17], {}, {}),
+        ("64 shared blocks, -1 inside row 2's live range", engine, 16, 208,
+         [3328, 2000, 700, 17], {"share": 64, "unmap": [(2, 40)]}, {}),
+        ("BS8 MAXB416", engine, 8, 416, [3328, 1000, 0, 17],
+         {"share": 10}, {}),
+        ("BS64 MAXB52", engine, 64, 52, [3328, 1000, 0, 17],
+         {"share": 10, "unmap": [(1, 3)]}, {}),
+        ("qwen3-32b B8 H64 K8 d128 BS16 MAXB256", (8, 64, 8, 128), 16, 256,
+         [4096, 3000, 2048, 1024, 513, 100, 1, 0],
+         {"share": 32, "unmap": [(3, 5)]}, {}),
+        ("window 64", engine, 16, 64, [1024, 700, 40, 0], {"share": 2},
+         {"window": 64}),
+        ("softcap 30 MHA d128", (2, 4, 4, 128), 16, 49, [777, 300],
+         {"share": 5}, {"softcap": 30.0}),
+    ]
+    for name, (B, H, K, d), BS, MAXB, lens, ikw, kw in cases:
+        args = _paged_inputs(B, H, K, d, BS, MAXB, lens, **ikw)
+        want = ref.flash_decode_paged_ref(*args, **kw)
+        got = flash_decode_paged(*args, **kw)
+        k, v, kp = ref.gather_paged_kv(*args[1:3], *args[4:])
+        same = flash_decode(args[0], k.contiguous(), v.contiguous(), args[3],
+                            kp.contiguous(), **kw)
+        torch.cuda.synchronize()
+        ok, err, worst = _close(got, want)
+        bitwise = torch.equal(got, same)
+        print(f"kernel flash_decode_paged [{name}] "
+              f"{split_chunk(B, K, MAXB * BS, sms)} keys per split: "
+              f"max_abs_err {err:.3e}, worst err/limit {worst:.3f} (limit "
+              f"{KERNEL_TOL}) {'ok' if ok else 'FAIL'}; bit-equal to "
+              f"flash_decode on the gathered view: {bitwise}")
+        check(ok, f"flash_decode_paged disagrees with plain: {name}")
+        check(bitwise, f"flash_decode_paged is not bit-equal to flash_decode "
+              f"on the gathered view: {name}")
+        if name.startswith("engine"):
+            main = (args, err)
+        if name.startswith("64 shared"):
+            q, k_pool, v_pool, qp, kp_pool, bt = args
+            # the -1 entry of row 2 read as block 0, which holds row 0's
+            # positions 640..655, live for row 2
+            bad = bt.clone()
+            bad[2, 40] = 0
+            _reject("flash_decode_paged reads row 2's unmapped entry as "
+                    "block 0", flash_decode_paged(q, k_pool, v_pool, qp,
+                                                  kp_pool, bad), want)
+
+    args, err = main
+    q, k_pool, v_pool, qp, kp_pool, bt = args
+    want = ref.flash_decode_paged_ref(*args)
+    # row 3 (17 keys) holds position 16 at offset 0 of its second block;
+    # a recycled block whose previous owner's positions 1..15 were left in
+    # offsets 1..15 makes those keys live
+    stale = kp_pool.clone()
+    stale[bt[3, 1], 1:] = torch.arange(1, 16, dtype=torch.int32,
+                                       device="cuda")
+    _reject("flash_decode_paged on a recycled block with stale positions",
+            flash_decode_paged(q, k_pool, v_pool, qp, stale, bt), want)
+
+    B, _, H, d = q.shape
+    NB, BS, K = k_pool.shape[:3]
+    MAXB = bt.shape[1]
+    _, _, kp = ref.gather_paged_kv(k_pool, v_pool, kp_pool, bt)
+    live = int(_valid_pairs(qp[:, None], kp, True, None).sum())
+    mapped = int((bt >= 0).sum())
+    nbytes = (q.numel() * 2 * 2 + live * K * d * 2 * 2 + bt.numel() * 4
+              + mapped * BS * 4 + qp.numel() * 4)
+    flops = 4 * H * live * d
+    result = {
+        "name": "flash_decode_paged", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:270",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: flash_decode_paged(*args)),
+        "eager_ms": eager_ms(lambda: flash_decode_paged(*args)),
+        "plain_ms": time_ms(lambda: ref.flash_decode_paged_ref(*args)),
+        "library_ms": time_ms(lambda: _gather_sdpa(*args)),
+        "library_call": "index_select gather + scaled_dot_product_attention",
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+        >= flops / BF16_FLOPS else "operations",
+        "shape": f"B{B} H{H} K{K} d{d} NB{NB} BS{BS} MAXB{MAXB}, {live} live "
+                 f"keys",
+    }
+    print("kernel_timing " + json.dumps(result))
+    return {"flash_decode_paged": result}
+
+
 # ---------------------------------------------------------------------------
 def phase_model(cfg, device, prompt_len, pad_len, seed=0):
     """Prefill a right-padded prompt, decode one token, and hold the decode
@@ -360,35 +526,79 @@ def _prompts(cfg, lens, seed=42):
             for n in lens]
 
 
+class _Margins:
+    """Top-2 logit margin of every sampled step of every request an engine
+    serves, keyed by rid, recorded around the model's calls (a prefill's
+    row is the request in PREFILL; a decode row is its slot's request)."""
+
+    def __init__(self, engine):
+        from repro_torch.serving.request import RequestState
+        self.by_rid, model = {}, engine.model
+
+        def record(fn, joining):
+            def wrapped(*a, **kw):
+                logits, cache = fn(*a, **kw)
+                top = torch.topk(logits.float(), 2).values
+                m = (top[:, 0] - top[:, 1]).tolist()
+                if joining:
+                    reqs = [r for r in engine.requests.values()
+                            if r.state == RequestState.PREFILL]
+                else:
+                    reqs = engine._slot_req
+                for req, x in zip(reqs, m):
+                    if req is not None:
+                        self.by_rid.setdefault(req.rid, []).append(x)
+                return logits, cache
+            return wrapped
+        self.model = model
+        model.prefill = record(model.prefill, True)
+        model.prefix_prefill = record(model.prefix_prefill, True)
+        model.decode_step = record(model.decode_step, False)
+
+    def close(self):
+        for name in ("prefill", "prefix_prefill", "decode_step"):
+            delattr(self.model, name)
+
+
 def _run_alone(model, params, prompt, max_new, prefill_len, cache_len, device):
     """Tokens of one request in a 1-slot engine, with the top-2 logit
-    margin of every sampled step (recorded around the model's calls)."""
+    margin of every sampled step."""
     from repro_torch.serving import Engine, SamplingParams
-    margins = []
-
-    def record(fn):
-        def wrapped(*a, **kw):
-            logits, cache = fn(*a, **kw)
-            top = torch.topk(logits[0].float(), 2).values
-            margins.append(float(top[0] - top[1]))
-            return logits, cache
-        return wrapped
-    model.prefill, model.decode_step = record(model.prefill), \
-        record(model.decode_step)
+    e = Engine(model, params, slots=1, prefill_len=prefill_len,
+               cache_len=cache_len, device=device)
+    margins = _Margins(e)
     try:
-        e = Engine(model, params, slots=1, prefill_len=prefill_len,
-                   cache_len=cache_len, device=device)
         res = e.generate([prompt], SamplingParams(max_new_tokens=max_new,
                                                   eos_token=None))[0]
     finally:
-        del model.prefill, model.decode_step
-    return res.tokens, margins
+        margins.close()
+    return res.tokens, margins.by_rid[res.rid]
+
+
+def _decode_rate(engine, device):
+    """Time the engine's decode ticks (host clock around each tick, synced
+    on the card); returns a function giving decoded rows per second."""
+    secs, rows = [0.0], [0]
+    orig = engine._generate
+
+    def timed(*a, **kw):
+        n = engine.pool.num_active
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs[0] += time.perf_counter() - t0
+        rows[0] += n
+        return out
+    engine._generate = timed
+    return lambda: rows[0] / secs[0]
 
 
 def phase_serving(model, params, device, lens, max_new, prefill_len,
                   cache_len, alone_idx):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged)
     from repro_torch.serving import Engine, SamplingParams
     cfg = model.cfg
     prompts = _prompts(cfg, lens)
@@ -400,22 +610,13 @@ def phase_serving(model, params, device, lens, max_new, prefill_len,
 
     e = Engine(model, params, slots=4, prefill_len=prefill_len,
                cache_len=cache_len, device=device)
-    gen_s, gen_rows = [0.0], [0]
-    orig = e._generate
-
-    def timed(*a):
-        rows = e.pool.num_active
-        t0 = time.perf_counter()
-        out = orig(*a)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        gen_s[0] += time.perf_counter() - t0
-        gen_rows[0] += rows
-        return out
-    e._generate = timed
+    rate = _decode_rate(e, device)
     flash_decode.launches = flash_attention_fwd.launches = 0
+    flash_decode_paged.launches = 0
     res = e.generate(prompts, sp)
     n_dec, n_fa = flash_decode.launches, flash_attention_fwd.launches
+    check(flash_decode_paged.launches == 0,
+          "the contiguous engine launched the paged decode kernel")
     long_prefills = sum(min(n, prefill_len) > 2048 for n in lens)
     want_dec = cfg.num_layers * e.ticks if device != "cpu" else 0
     want_fa = cfg.num_layers * long_prefills if device != "cpu" else 0
@@ -445,21 +646,159 @@ def phase_serving(model, params, device, lens, max_new, prefill_len,
                          cache_len) if device != "cpu" else None
     stats = {"device_busy_share": busy,
              "ttft_p50_ms": s["ttft_p50_ms"], "tpot_p50_ms": s["tpot_p50_ms"],
-             "decode_tok_per_s": gen_rows[0] / gen_s[0],
+             "decode_tok_per_s": rate(),
              "ticks": e.ticks, "requests": len(res),
              "tokens_compared": compared, "launches": {
                  "flash_decode": n_dec, "flash_attention_fwd": n_fa}}
     return stats
 
 
+def paged_mix(cfg, sys_len, parts, seed=43):
+    """Prompts of the paged serving mix: ("sys", n) is one shared
+    ``sys_len``-token prompt followed by n own tokens, (None, n) n
+    unrelated tokens."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(n):
+        return torch.randint(2, cfg.vocab_size, (n,), generator=g).numpy()
+    sys_prompt = draw(sys_len)
+    return [np.concatenate([sys_prompt, draw(n)]) if kind == "sys"
+            else draw(n) for kind, n in parts]
+
+
+def phase_paged_serving(model, params, device, prompts, n_sys, sys_len,
+                        max_new, prefill_len, cache_len, block_size,
+                        trap_lens, trap_block):
+    """The paged engine serves ``prompts`` (``n_sys`` of them share the
+    ``sys_len``-token prefix): exact prefix stats, launch counts, no leaked
+    block after the drain, and tokens equal to the contiguous engine's on
+    the same mix up to the first step whose top-2 margin is under
+    MARGIN_TOL.  Then the recycled-block case: A, then B, on a 1-slot
+    engine without prefix reuse; B's tokens must equal B alone."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged)
+    from repro_torch.serving import Engine, SamplingParams
+    cfg = model.cfg
+    sp = SamplingParams(max_new_tokens=max_new, eos_token=None)
+    kw = dict(slots=4, prefill_len=prefill_len, cache_len=cache_len,
+              device=device)
+    # warm-up of the paged path (first-call costs stay out of the numbers)
+    Engine(model, params, block_size=block_size, **kw).generate(
+        [prompts[2], prompts[0]], sp)
+
+    contig = Engine(model, params, **kw)
+    contig_rate = _decode_rate(contig, device)
+    margins = _Margins(contig)
+    try:
+        want = [r.tokens for r in contig.generate(prompts, sp)]
+    finally:
+        margins.close()
+    e = Engine(model, params, block_size=block_size, **kw)
+    rate = _decode_rate(e, device)
+    flash_decode.launches = flash_decode_paged.launches = 0
+    flash_attention_fwd.launches = 0
+    res = e.generate(prompts, sp)
+    n_paged, n_dec = flash_decode_paged.launches, flash_decode.launches
+    n_fa = flash_attention_fwd.launches
+    L, joins = cfg.num_layers, len(prompts)
+    on_card = device != "cpu"
+    print(f"paged serving launches: flash_decode_paged {n_paged} (want {L} x "
+          f"{e.ticks} ticks), flash_decode {n_dec} (want 0), "
+          f"flash_attention_fwd {n_fa} (want {L} x {joins} joins)")
+    check(n_paged == L * e.ticks * on_card and n_dec == 0
+          and n_fa == L * joins * on_card,
+          "paged serving: kernel launch counts do not match the path")
+    st = e.pool.prefix_stats()
+    hit_blocks = sys_len // block_size
+    print(f"paged prefix stats: {st}")
+    check(st["hits"] == n_sys - 1 and st["misses"] == joins - n_sys + 1
+          and st["hit_tokens"] == (n_sys - 1) * hit_blocks * block_size,
+          "paged serving: prefix stats differ from the mix")
+    hits = [r for r in res if r.metrics.prefix_cached_tokens]
+    check(len(hits) == n_sys - 1 and all(
+        r.metrics.prefilled_tokens == r.metrics.prompt_tokens
+        - hit_blocks * block_size for r in hits),
+        "paged serving: a prefix hit prefilled more than its suffix")
+    check(all(len(r.tokens) == max_new for r in res),
+          "every request must produce max_new tokens")
+    pool = e.pool
+    check(pool.free_blocks + pool.cached_blocks == pool.num_blocks
+          and (pool.refcount == 0).all() and pool._total_reserved == 0,
+          "paged serving: a block is still held after the drain")
+    compared = 0
+    for i, (r, w) in enumerate(zip(res, want)):
+        m = margins.by_rid[i]
+        n = next((j for j, x in enumerate(m) if x < MARGIN_TOL), len(w))
+        check(r.tokens[:n] == w[:n],
+              f"paged serving: request {i} ({len(prompts[i])} tokens) "
+              f"differs from the contiguous engine in its first {n} steps")
+        compared += n
+    print(f"paged serving invariant: paged == contiguous tokens on "
+          f"{compared}/{len(prompts) * max_new} (each request compared up to "
+          f"its first step with a top-2 margin < {MARGIN_TOL})")
+
+    # the recycled-block case: B lands on A's first block at table index 2
+    a, b = paged_mix(cfg, 0, [(None, n) for n in trap_lens], seed=44)
+    one = dict(slots=1, prefill_len=prefill_len, cache_len=cache_len,
+               block_size=trap_block, prefix_cache=False, device=device)
+    logits, tables = [], []
+
+    def record(fn):
+        def wrapped(*args, **kwargs):
+            out, cache = fn(*args, **kwargs)
+            logits.append(out.float())
+            if "length" in args[1]:                     # a join
+                tables.append(args[1]["block_tables"][0, :4].tolist())
+            return out, cache
+        return wrapped
+    model.prefix_prefill = record(model.prefix_prefill)
+    model.decode_step = record(model.decode_step)
+    try:
+        alone = Engine(model, params, **one).generate([b], sp)[0].tokens
+        e1 = Engine(model, params, **one)
+        e1.generate([a], SamplingParams(max_new_tokens=2, eos_token=None))
+        n = len(logits)
+        after = e1.generate([b], sp)[0].tokens
+    finally:
+        del model.prefix_prefill, model.decode_step
+    first, second = logits[:max_new], logits[n:]
+    diff = max(float((x - y).abs().max()) for x, y in zip(first, second))
+    table = tables[-1]
+    check(table[2] == 0, "the recycled-block case does not map A's first "
+          "block at B's table index 2")
+    print(f"paged recycled block: B's table after A starts {table}; "
+          f"B after A == B alone on {max_new} tokens: {after == alone}, "
+          f"max |delta logit| over its {len(second)} steps {diff:.3e}")
+    check(after == alone and diff == 0.0,
+          "paged serving: a recycled block leaks keys")
+
+    s, c = e.stats(), contig.stats()
+    busy = profile_ticks(model, params, device, prompts[:4], prefill_len,
+                         cache_len, block_size=block_size) if on_card \
+        else None
+    return {"device_busy_share": busy,
+            "ttft_p50_ms": s["ttft_p50_ms"], "tpot_p50_ms": s["tpot_p50_ms"],
+            "decode_tok_per_s": rate(), "ticks": e.ticks,
+            "contiguous_ttft_p50_ms": c["ttft_p50_ms"],
+            "contiguous_tpot_p50_ms": c["tpot_p50_ms"],
+            "contiguous_decode_tok_per_s": contig_rate(),
+            "contiguous_ticks": contig.ticks,
+            "requests": len(res), "tokens_compared": compared,
+            "prefix": st, "kv_utilization": s.get("kv_utilization"),
+            "launches": {"flash_decode_paged": n_paged,
+                         "flash_decode": n_dec,
+                         "flash_attention_fwd": n_fa}}
+
+
 def profile_ticks(model, params, device, prompts, prefill_len, cache_len,
-                  ticks=8):
+                  ticks=8, block_size=None):
     """Share of wall time the card is busy over ``ticks`` decode ticks of a
     4-slot engine (torch.profiler), and the kernels that take the most."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine, SamplingParams
     e = Engine(model, params, slots=4, prefill_len=prefill_len,
-               cache_len=cache_len, device=device)
+               cache_len=cache_len, block_size=block_size, device=device)
     for p in prompts:
         e.submit(p, SamplingParams(max_new_tokens=10 * ticks, eos_token=None))
     e.step()                                    # joins + first tick
@@ -475,7 +814,8 @@ def profile_ticks(model, params, device, prompts, prefill_len, cache_len,
             if ev.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(ev.self_device_time_total for ev in kern)
     top = sorted(kern, key=lambda ev: -ev.self_device_time_total)[:6]
-    print(f"profile: {ticks} decode ticks, wall {wall_us / ticks:.0f} us/tick,"
+    print(f"profile{' (paged)' if block_size else ''}: {ticks} decode ticks, "
+          f"wall {wall_us / ticks:.0f} us/tick,"
           f" device busy {dev_us / ticks:.0f} us/tick "
           f"({dev_us / wall_us:.1%} of wall)")
     for ev in top:
@@ -494,6 +834,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kernels = phase_kernels()
+    kernels.update(phase_paged_kernel())
     cfg = get_config("gemma-2b")
     model, params = phase_model(cfg, "cuda", 3072, 3200)
     stats = phase_serving(model, params, "cuda", SERVE_PROMPTS, 32,
@@ -503,8 +844,24 @@ def main() -> int:
           f"ms, TPOT p50 {stats['tpot_p50_ms']:.3f} ms, decode "
           f"{stats['decode_tok_per_s']:.1f} tok/s")
     print("serving_stats " + json.dumps(stats))
+    paged = phase_paged_serving(
+        model, params, "cuda", paged_mix(cfg, SYS_LEN, PAGED_MIX),
+        n_sys=sum(kind == "sys" for kind, _ in PAGED_MIX), sys_len=SYS_LEN,
+        max_new=32, prefill_len=3072, cache_len=3328, block_size=16,
+        trap_lens=(20, 20), trap_block=8)
+    print(f"paged serving {cfg.name} on {smi}: TTFT p50 "
+          f"{paged['ttft_p50_ms']:.2f} ms, TPOT p50 "
+          f"{paged['tpot_p50_ms']:.3f} ms, decode "
+          f"{paged['decode_tok_per_s']:.1f} tok/s; contiguous engine on the "
+          f"same mix: TTFT p50 {paged['contiguous_ttft_p50_ms']:.2f} ms, "
+          f"TPOT p50 {paged['contiguous_tpot_p50_ms']:.3f} ms, decode "
+          f"{paged['contiguous_decode_tok_per_s']:.1f} tok/s")
+    print("paged_serving_stats " + json.dumps(paged))
+    # each kernel's launches on the serving paths: the contiguous engine's
+    # run and the paged engine's run, each counted from 0
     for name, r in kernels.items():
-        r["launches"] = stats["launches"][name]
+        r["launches"] = (stats["launches"].get(name, 0)
+                         + paged["launches"].get(name, 0))
     line = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                "launches", "max_abs_err", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms")}

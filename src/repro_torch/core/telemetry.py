@@ -1,6 +1,8 @@
 """Request-level serving telemetry (the serving half of
 ``repro.core.telemetry``, copied): one record per finished or cancelled
-request with queue wait, TTFT and TPOT, plus a percentile summary."""
+request with queue wait, TTFT and TPOT, plus a percentile summary and,
+where requests report them, KV-memory use (``kv_utilization``: used over
+allocated bytes) and the prompt tokens served from the prefix cache."""
 from __future__ import annotations
 
 import json
@@ -69,6 +71,9 @@ class ServingTelemetry:
         pft = pick("prefilled_tokens")
         if pft:
             out["prefilled_tokens"] = sum(pft)
+        pct = pick("prefix_cached_tokens")
+        if any(pct):
+            out["prefix_cached_tokens"] = sum(pct)
         return out
 
     def close(self):

@@ -1,7 +1,20 @@
 // Grouped split-KV flash decode for Hopper (sm_90a), bf16 in, f32 math.
 //
-// Replaces the TPU kernel repro/kernels/flash_decode.py::flash_decode_pallas
-// (_decode_kernel) and its log-sum-exp epilogue combine_partials.
+// Replaces the TPU kernels repro/kernels/flash_decode.py::flash_decode_pallas
+// (_decode_kernel), its log-sum-exp epilogue combine_partials, and
+// flash_decode_paged (_paged_decode_kernel).  The contiguous and the paged
+// decode are one kernel: where key t of row b lives is a template policy
+// (ContiguousKeys, PagedKeys), and everything else -- the key loop, the
+// softmax, the PV sum and the combine -- is shared.  So with the same split
+// length the paged kernel on a pool is bit-equal to the contiguous kernel
+// on the gathered view.
+//
+// Paged addressing: key t of row b is offset t % BS of pool block
+// bt[b, t / BS].  An unmapped entry (-1) gives the key position -1, so it
+// is masked like an empty slot and its row is never loaded.  The TPU ran one
+// grid step per pool block; 16 keys are far too little work for a block
+// here, so the paged kernel keeps the contiguous kernel's split length and
+// a split walks several pool blocks.
 //
 // What bounds it on the H100: memory.  One query token per row meets
 // every live K/V byte once, about 2 FLOP per byte read, far below the
@@ -88,15 +101,43 @@ __device__ __forceinline__ bool key_valid(int qp, int kp, int causal, int window
   return kp >= 0 && (!causal || qp >= kp) && (qp - kp) < window;
 }
 
-// One block per (split, kv head, row).  Shared memory: scores/probabilities
-// [G][chunk], the cross-warp reduction buffer [G][D], key validity [chunk].
-template <int D, int G>
+// Where key t of row b lives.  pos(b, t) is its position (-1 = empty);
+// row(b, t) the index of its (K, D) row in the K/V tensors, called only
+// for a key with pos >= 0.
+struct ContiguousKeys {              // k, v (B, T, K, D); k_pos (B, T)
+  const int* k_pos;
+  int T;
+  __device__ __forceinline__ int pos(int b, int t) const {
+    return k_pos[(size_t)b * T + t];
+  }
+  __device__ __forceinline__ int row(int b, int t) const { return b * T + t; }
+};
+
+struct PagedKeys {                   // pools (NB, BS, K, D); kp (NB, BS); bt (B, MAXB)
+  const int* kp_pool;
+  const int* bt;
+  int maxb, bs;
+  __device__ __forceinline__ int block(int b, int t) const {
+    return bt[(size_t)b * maxb + t / bs];
+  }
+  __device__ __forceinline__ int pos(int b, int t) const {
+    const int blk = block(b, t);
+    return blk < 0 ? -1 : kp_pool[(size_t)blk * bs + t % bs];
+  }
+  __device__ __forceinline__ int row(int b, int t) const {
+    return block(b, t) * bs + t % bs;
+  }
+};
+
+// One block per (split, kv head, row) over T keys per row.  Shared memory:
+// scores/probabilities [G][chunk], the cross-warp reduction buffer [G][D],
+// and per key the K/V row index, -1 for a masked key [chunk].
+template <int D, int G, class Keys>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      const int* __restrict__ q_pos,
-                      const int* __restrict__ k_pos,
+                      const int* __restrict__ q_pos, const Keys keys,
                       float* __restrict__ o_part, float* __restrict__ m_part,
                       float* __restrict__ l_part, int T, int K, int chunk,
                       int causal, int window, float softcap, float scale) {
@@ -105,7 +146,7 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ float smem[];
   float* s_buf = smem;                 // [G][chunk]
   float* red = smem + G * chunk;       // [G][D]
-  int* live = reinterpret_cast<int*>(red + G * D);   // [chunk]
+  int* rows = reinterpret_cast<int*>(red + G * D);   // [chunk]
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x;
@@ -115,11 +156,13 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
   const int qp = q_pos[b];
   const int H = K * G;
   const size_t row_stride = (size_t)K * D;
-  const __nv_bfloat16* kbase = k + ((size_t)b * T + t0) * row_stride + (size_t)kh * D + lane * VEC;
-  const __nv_bfloat16* vbase = v + ((size_t)b * T + t0) * row_stride + (size_t)kh * D + lane * VEC;
+  const __nv_bfloat16* kbase = k + (size_t)kh * D + lane * VEC;
+  const __nv_bfloat16* vbase = v + (size_t)kh * D + lane * VEC;
 
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    live[i] = key_valid(qp, k_pos[(size_t)b * T + t0 + i], causal, window);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int t = t0 + i;
+    rows[i] = key_valid(qp, keys.pos(b, t), causal, window) ? keys.row(b, t) : -1;
+  }
   __syncthreads();
 
   // phase A: scores of the split's keys for all G heads; each warp keeps U
@@ -133,13 +176,13 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
       float kr[U][VEC];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (i0 + u < n && live[i0 + u])
-          load_row<VEC>(kbase + (size_t)(i0 + u) * row_stride, kr[u]);
+        if (i0 + u < n && rows[i0 + u] >= 0)
+          load_row<VEC>(kbase + (size_t)rows[i0 + u] * row_stride, kr[u]);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int i = i0 + u;
         if (i >= n) break;
-        if (!live[i]) {
+        if (rows[i] < 0) {
           if (lane < G) s_buf[lane * chunk + i] = -INFINITY;
           continue;
         }
@@ -188,13 +231,13 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
     float vr[U][VEC];
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (i0 + u < n && live[i0 + u])
-        load_row<VEC>(vbase + (size_t)(i0 + u) * row_stride, vr[u]);
+      if (i0 + u < n && rows[i0 + u] >= 0)
+        load_row<VEC>(vbase + (size_t)rows[i0 + u] * row_stride, vr[u]);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u;
       if (i >= n) break;
-      if (!live[i]) continue;
+      if (rows[i] < 0) continue;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = s_buf[g * chunk + i];
@@ -264,29 +307,29 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
   out[((size_t)bk * G + g) * D + e] = __float2bfloat16(acc / fmaxf(l_star, 1e-30f));
 }
 
-template <int D, int G>
+template <int D, int G, class Keys>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* q_pos, const void* k_pos, void* o_part,
-                   void* m_part, void* l_part, void* out, int B, int T, int K,
-                   int chunk, int splits, int causal, int window,
-                   float softcap, cudaStream_t stream) {
+                   const void* q_pos, Keys keys, void* o_part, void* m_part,
+                   void* l_part, void* out, int B, int T, int K, int chunk,
+                   int splits, int causal, int window, float softcap,
+                   cudaStream_t stream) {
   const size_t smem =
       ((size_t)G * chunk + (size_t)G * D) * sizeof(float) + chunk * sizeof(int);
   static size_t smem_set = 0;          // per instantiation: raise once
   cudaError_t err;
   if (smem > smem_set) {
-    err = cudaFuncSetAttribute(decode_partial_kernel<D, G>,
+    err = cudaFuncSetAttribute(decode_partial_kernel<D, G, Keys>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   dim3 grid(splits, K, B);
-  decode_partial_kernel<D, G><<<grid, kThreads, smem, stream>>>(
+  decode_partial_kernel<D, G, Keys><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)q_pos, (const int*)k_pos,
-      (float*)o_part, (float*)m_part, (float*)l_part, T, K, chunk, causal,
-      window, softcap, 1.0f / sqrtf((float)D));
+      (const __nv_bfloat16*)v, (const int*)q_pos, keys, (float*)o_part,
+      (float*)m_part, (float*)l_part, T, K, chunk, causal, window, softcap,
+      1.0f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   combine_kernel<<<B * K * G, D, splits * sizeof(float), stream>>>(
@@ -295,27 +338,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_g(int G, const void* q, const void* k, const void* v,
-                     const void* q_pos, const void* k_pos, void* o_part,
-                     void* m_part, void* l_part, void* out, int B, int T,
-                     int K, int chunk, int splits, int causal, int window,
-                     float softcap, cudaStream_t stream) {
-#define REPRO_G(g)                                                         \
-  case g:                                                                  \
-    return launch<D, g>(q, k, v, q_pos, k_pos, o_part, m_part, l_part, out, \
-                        B, T, K, chunk, splits, causal, window, softcap,   \
-                        stream);
-  switch (G) {
-    REPRO_G(1)
-    REPRO_G(2)
-    REPRO_G(4)
-    REPRO_G(8)
-    REPRO_G(16)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef REPRO_G
+template <class Keys>
+int launch_dg(int D, int G, const void* q, const void* k, const void* v,
+              const void* q_pos, Keys keys, void* o_part, void* m_part,
+              void* l_part, void* out, int B, int T, int K, int chunk,
+              int splits, int causal, int window, float softcap,
+              void* stream) {
+#define REPRO_DG(d, g)                                                     \
+  if (D == d && G == g)                                                    \
+    return (int)launch<d, g, Keys>(q, k, v, q_pos, keys, o_part, m_part,   \
+                                   l_part, out, B, T, K, chunk, splits,    \
+                                   causal, window, softcap,                \
+                                   (cudaStream_t)stream);
+#define REPRO_D(d) \
+  REPRO_DG(d, 1) REPRO_DG(d, 2) REPRO_DG(d, 4) REPRO_DG(d, 8) REPRO_DG(d, 16)
+  REPRO_D(64)
+  REPRO_D(128)
+  REPRO_D(256)
+#undef REPRO_D
+#undef REPRO_DG
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -329,21 +371,23 @@ extern "C" int repro_flash_decode_bf16(
     const void* k_pos, void* o_part, void* m_part, void* l_part, void* out,
     int B, int T, int K, int G, int D, int chunk, int splits, int causal,
     int window, float softcap, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 64:
-      return launch_g<64>(G, q, k, v, q_pos, k_pos, o_part, m_part, l_part,
-                          out, B, T, K, chunk, splits, causal, window,
-                          softcap, s);
-    case 128:
-      return launch_g<128>(G, q, k, v, q_pos, k_pos, o_part, m_part, l_part,
-                           out, B, T, K, chunk, splits, causal, window,
-                           softcap, s);
-    case 256:
-      return launch_g<256>(G, q, k, v, q_pos, k_pos, o_part, m_part, l_part,
-                           out, B, T, K, chunk, splits, causal, window,
-                           softcap, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const ContiguousKeys keys{(const int*)k_pos, T};
+  return launch_dg(D, G, q, k, v, q_pos, keys, o_part, m_part, l_part, out,
+                   B, T, K, chunk, splits, causal, window, softcap, stream);
+}
+
+// As repro_flash_decode_bf16, with K/V read through block tables:
+// k_pool, v_pool (NB, BS, K, D) bf16; kp_pool (NB, BS) int32; bt (B, MAXB)
+// int32 with -1 = unmapped.  Row b's keys are the MAXB * BS keys its table
+// maps, in table order.
+extern "C" int repro_flash_decode_paged_bf16(
+    const void* q, const void* k_pool, const void* v_pool, const void* q_pos,
+    const void* kp_pool, const void* bt, void* o_part, void* m_part,
+    void* l_part, void* out, int B, int MAXB, int BS, int K, int G, int D,
+    int chunk, int splits, int causal, int window, float softcap,
+    void* stream) {
+  const PagedKeys keys{(const int*)kp_pool, (const int*)bt, MAXB, BS};
+  return launch_dg(D, G, q, k_pool, v_pool, q_pos, keys, o_part, m_part,
+                   l_part, out, B, MAXB * BS, K, chunk, splits, causal,
+                   window, softcap, stream);
 }

@@ -1,11 +1,14 @@
-"""Wrapper of the grouped split-KV flash-decode CUDA kernel
-(``csrc/flash_decode.cu``; replaces the TPU kernel
-``repro.kernels.flash_decode.flash_decode_pallas``).
+"""Wrappers of the grouped split-KV flash-decode CUDA kernel
+(``csrc/flash_decode.cu``), contiguous and paged.
 
-``flash_decode`` launches the kernel on CUDA tensors and raises on
-anything else; ``kernels.ops`` sends CPU tensors to the plain version
-``kernels.ref.flash_decode_ref``.  ``flash_decode.launches`` counts the
-launches.
+``flash_decode`` replaces the TPU kernel
+``repro.kernels.flash_decode.flash_decode_pallas``; ``flash_decode_paged``
+replaces ``flash_decode_paged``, the same decode read through per-row
+block tables into a global block pool.  Each launches its kernel on CUDA
+tensors and raises on anything else; ``kernels.ops`` sends CPU tensors
+to the plain versions ``kernels.ref.flash_decode_ref`` and
+``flash_decode_paged_ref``.  ``flash_decode.launches`` and
+``flash_decode_paged.launches`` count the launches.
 """
 from __future__ import annotations
 
@@ -18,18 +21,21 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (64, 128, 256)
 GROUPS = (1, 2, 4, 8, 16)
 MAX_CHUNK = 512
-_fn = None
+_ARGTYPES = {  # pointers, ints, then softcap and the stream
+    "repro_flash_decode_bf16": (9, 9),
+    "repro_flash_decode_paged_bf16": (10, 10)}
+_fns = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        f = _build.library("flash_decode").repro_flash_decode_bf16
+def _kernel(name="repro_flash_decode_bf16"):
+    if name not in _fns:
+        f = getattr(_build.library("flash_decode"), name)
+        ptrs, ints = _ARGTYPES[name]
         f.restype = ctypes.c_int
-        f.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        f.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [
             ctypes.c_float, ctypes.c_void_p]
-        _fn = f
-    return _fn
+        _fns[name] = f
+    return _fns[name]
 
 
 def split_chunk(B: int, K: int, T: int, sms: int) -> int:
@@ -66,24 +72,13 @@ def flash_decode(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     _check("v", v, bf16, (B, T, K, d), dev)
     _check("q_pos", q_pos, i32, (B,), dev)
     _check("k_pos", k_pos, i32, (B, T), dev)
-    window = (1 << 30) if window is None else int(window)
-    if window <= 0 or (softcap is not None and softcap <= 0):
-        raise ValueError(f"window must be > 0 and softcap > 0 "
-                         f"(got {window}, {softcap})")
-    G = H // K
-    chunk = split_chunk(
-        B, K, T, torch.cuda.get_device_properties(dev).multi_processor_count)
-    splits = -(-T // chunk)
-    o_part = torch.empty((B, K, splits, G, d), dtype=torch.float32, device=dev)
-    m_part = torch.empty((B, K, splits, G), dtype=torch.float32, device=dev)
-    l_part = torch.empty((B, K, splits, G), dtype=torch.float32, device=dev)
-    out = torch.empty_like(q)
+    window, chunk, splits, parts, out = _launch_args(q, K, T, window, softcap)
     with torch.cuda.device(dev):
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            k_pos.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), out.data_ptr(), B, T, K, G, d, chunk, splits,
-            int(causal), window, float(softcap or 0.0),
+            k_pos.data_ptr(), *(t.data_ptr() for t in parts),
+            out.data_ptr(), B, T, K, H // K, d, chunk, splits, int(causal),
+            window, float(softcap or 0.0),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
@@ -91,4 +86,69 @@ def flash_decode(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     return out
 
 
+def flash_decode_paged(q, k_pool, v_pool, q_pos, kp_pool, block_tables, *,
+                       causal=True, window=None, softcap=None):
+    """q: (B, 1, H, d) bf16; k_pool, v_pool: (NB, BS, K, d) bf16, the
+    global block pool; q_pos: (B,) int32; kp_pool: (NB, BS) int32 with -1
+    = unwritten; block_tables: (B, MAXB) int32 with -1 = unmapped, entry j
+    holding row positions [j BS, (j + 1) BS); every other entry must be
+    below NB (the kernel reads through the table unchecked; the model's
+    ``paged_targets`` checks it).  Returns (B, 1, H, d) bf16.
+
+    The split length is the contiguous kernel's at T = MAXB x BS, so the
+    output is bit-equal to ``flash_decode`` on ``gather_paged_kv``'s view."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_decode_paged launches a CUDA kernel: tensors "
+                         f"must be on a CUDA device, got {q.device}")
+    B, S, H, d = q.shape
+    NB, BS, K = k_pool.shape[:3]
+    MAXB = block_tables.shape[1]
+    if S != 1 or H % K or d not in HEAD_DIMS or H // K not in GROUPS:
+        raise ValueError(f"flash_decode_paged takes S=1, d in {HEAD_DIMS} "
+                         f"and H/K in {GROUPS} (got S={S}, H={H}, K={K}, "
+                         f"d={d})")
+    dev, bf16, i32 = q.device, torch.bfloat16, torch.int32
+    _check("q", q, bf16, (B, 1, H, d), dev)
+    _check("k_pool", k_pool, bf16, (NB, BS, K, d), dev)
+    _check("v_pool", v_pool, bf16, (NB, BS, K, d), dev)
+    _check("q_pos", q_pos, i32, (B,), dev)
+    _check("kp_pool", kp_pool, i32, (NB, BS), dev)
+    _check("block_tables", block_tables, i32, (B, MAXB), dev)
+    window, chunk, splits, parts, out = _launch_args(q, K, MAXB * BS, window,
+                                                     softcap)
+    with torch.cuda.device(dev):
+        rc = _kernel("repro_flash_decode_paged_bf16")(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            q_pos.data_ptr(), kp_pool.data_ptr(), block_tables.data_ptr(),
+            *(t.data_ptr() for t in parts), out.data_ptr(), B, MAXB, BS, K,
+            H // K, d, chunk, splits, int(causal), window,
+            float(softcap or 0.0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(
+            f"flash_decode_paged kernel launch failed: cudaError {rc}")
+    flash_decode_paged.launches += 1
+    return out
+
+
+def _launch_args(q, K, T, window, softcap):
+    """Window, split length and count, the f32 partials' scratch and the
+    output of a decode over T keys per row."""
+    window = (1 << 30) if window is None else int(window)
+    if window <= 0 or (softcap is not None and softcap <= 0):
+        raise ValueError(f"window must be > 0 and softcap > 0 "
+                         f"(got {window}, {softcap})")
+    B, _, H, d = q.shape
+    G, dev = H // K, q.device
+    chunk = split_chunk(
+        B, K, T, torch.cuda.get_device_properties(dev).multi_processor_count)
+    splits = -(-T // chunk)
+    o_part = torch.empty((B, K, splits, G, d), dtype=torch.float32, device=dev)
+    m_part = torch.empty((B, K, splits, G), dtype=torch.float32, device=dev)
+    l_part = torch.empty((B, K, splits, G), dtype=torch.float32, device=dev)
+    return window, chunk, splits, (o_part, m_part, l_part), \
+        torch.empty_like(q)
+
+
 flash_decode.launches = 0
+flash_decode_paged.launches = 0

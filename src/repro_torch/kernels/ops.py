@@ -9,6 +9,8 @@ from __future__ import annotations
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import \
+    flash_decode_paged as _flash_decode_paged
 
 
 def _on_cuda(t) -> bool:
@@ -32,3 +34,16 @@ def flash_attention(q, k, v, q_pos, k_pos, *, softcap=None):
     if _on_cuda(q):
         return flash_attention_fwd(q, k, v, q_pos, k_pos, softcap=softcap)
     return _ref.flash_attention_ref(q, k, v, q_pos, k_pos, softcap=softcap)
+
+
+def flash_decode_paged(q, k_pool, v_pool, q_pos, kp_pool, block_tables, *,
+                       softcap=None):
+    """Causal decode through block tables.  q: (B, 1, H, d); k_pool,
+    v_pool: (NB, BS, K, d), the global pool; q_pos: (B,) or (B, 1);
+    kp_pool: (NB, BS) with -1 = unwritten; block_tables: (B, MAXB) with
+    -1 = unmapped."""
+    if _on_cuda(q):
+        return _flash_decode_paged(q, k_pool, v_pool, q_pos.reshape(-1),
+                                   kp_pool, block_tables, softcap=softcap)
+    return _ref.flash_decode_paged_ref(q, k_pool, v_pool, q_pos, kp_pool,
+                                       block_tables, softcap=softcap)

@@ -3,8 +3,8 @@
 These are the CPU path of ``kernels.ops`` and the oracle that
 ``chip_smoke.py`` holds each CUDA kernel against on the card.  They
 follow the reference twins in ``repro.kernels.ref`` (``flash_decode_ref``,
-the forward of ``flash_attention_ref``) and ``combine_partials`` of
-``repro.kernels.flash_decode``, rounding to the input dtype at the same
+the forward of ``flash_attention_ref``, ``flash_decode_paged_ref``) and
+``combine_partials`` of ``repro.kernels.flash_decode``, rounding to the input dtype at the same
 points: scores and softmax statistics are f32, and ``p`` is cast to V's
 dtype before the PV product.
 
@@ -98,6 +98,37 @@ def flash_decode_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,
                                   window=window, softcap=softcap,
                                   splits=splits)
     return combine_partials(*parts).reshape(B, 1, H, d).to(q.dtype)
+
+
+def gather_paged_kv(k_pool, v_pool, kp_pool, block_tables):
+    """Per-row contiguous K/V views of a global block pool.
+
+    k_pool, v_pool: (NB, BS, K, d); kp_pool: (NB, BS) int32;
+    block_tables: (B, MAXB) int32 with -1 = unmapped.  Returns k, v
+    (B, MAXB * BS, K, d) and positions (B, MAXB * BS): the contiguous
+    cache the non-paged path would see.  An unmapped entry reads pool
+    block 0 (its table entry is clamped for the read only) and its keys
+    get position -1, so they are masked."""
+    NB, BS, K, d = k_pool.shape
+    B = block_tables.shape[0]
+    bt = block_tables.long()
+    safe = torch.clamp(bt, min=0)
+    k = k_pool[safe].reshape(B, -1, K, d)
+    v = v_pool[safe].reshape(B, -1, K, d)
+    kp = torch.where(bt[..., None] >= 0, kp_pool[safe],
+                     torch.full_like(kp_pool[safe], -1)).reshape(B, -1)
+    return k, v, kp
+
+
+def flash_decode_paged_ref(q, k_pool, v_pool, q_pos, kp_pool, block_tables,
+                           *, causal=True, window=None, softcap=None):
+    """Paged decode attention, plain PyTorch: gather each row's blocks
+    (``gather_paged_kv``), then ``flash_decode_ref`` on that view, as the
+    reference's ``flash_decode_paged_ref``.  q: (B, 1, H, d); pools
+    (NB, BS, K, d); kp_pool (NB, BS); block_tables (B, MAXB)."""
+    k, v, kp = gather_paged_kv(k_pool, v_pool, kp_pool, block_tables)
+    return flash_decode_ref(q, k, v, q_pos, kp, causal=causal, window=window,
+                            softcap=softcap)
 
 
 def flash_attention_ref(q, k, v, q_pos, k_pos, *, causal=True, window=None,

@@ -6,7 +6,8 @@ metrics (queue wait / TTFT / TPOT).  Runs on the card unless
 ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
-        --requests 8 --slots 4 --max-new 32 [--no-reduced] [--device cpu]
+        --requests 8 --slots 4 --max-new 32 [--no-reduced] [--device cpu] \
+        [--block-size 16 [--num-blocks N] [--no-prefix-cache]]
 
 ``--reduced`` is on by default; ``--no-reduced`` serves the published
 config at full width.
@@ -39,6 +40,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cache-len", type=int, default=256)
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="bucket prompt lengths up to multiples of this")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="paged KV: tokens per cache block (enables the "
+                         "paged block pool)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="paged KV: pool size in blocks (default: the "
+                         "memory of slots x cache_len)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="paged KV: share prompt-prefix blocks across "
+                         "requests (default on)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -59,7 +70,9 @@ def main(argv=None) -> int:
     telemetry = ServingTelemetry(args.telemetry)
     engine = Engine(model, params, slots=args.slots,
                     prefill_len=args.prefill_len, cache_len=args.cache_len,
-                    prefill_chunk=args.prefill_chunk, telemetry=telemetry,
+                    prefill_chunk=args.prefill_chunk,
+                    block_size=args.block_size, num_blocks=args.num_blocks,
+                    prefix_cache=args.prefix_cache, telemetry=telemetry,
                     device=args.device)
     rng = np.random.default_rng(args.seed)
     on_token = None
@@ -90,6 +103,13 @@ def main(argv=None) -> int:
           f"tpot p50/p99 {s['tpot_p50_ms']:.1f}/{s['tpot_p99_ms']:.1f} ms; "
           f"queue p50/p99 {s['queue_wait_p50_ms']:.0f}/"
           f"{s['queue_wait_p99_ms']:.0f} ms")
+    if engine.paged:
+        p = s["prefix"]
+        print(f"paged pool: {s['num_blocks']} x {engine.block_size}-token "
+              f"blocks, {s['free_blocks']} free; prefix hits "
+              f"{p['hits']}/{p['hits'] + p['misses']} "
+              f"({p['hit_tokens']} tokens served from cache); "
+              f"kv util {s.get('kv_utilization', 0):.0%}")
     telemetry.close()
     return 0
 

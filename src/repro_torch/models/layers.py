@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import Activation, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import gather_paged_kv  # noqa: F401 (re-export)
 
 NEG_INF = -1e30
 CHUNKED_THRESHOLD = 2048     # keys above which prefill takes the flash path
@@ -69,7 +70,11 @@ def attention(p: Dict, x, cfg: ModelConfig, *, positions,
     card), fewer the dense plain path, as in the reference.  With
     ``cache_kv = (k, v, k_pos)`` (decode; the new K/V already written)
     attention reads the cache at the native kv-head count through the
-    decode kernel.
+    decode kernel.  With ``cache_kv = (k_pool, v_pool, kp_pool,
+    block_tables)`` (paged; the new K/V already written) one query token
+    takes the paged decode kernel, and more (a suffix prefill) the flash
+    path over ``gather_paged_kv``'s contiguous view, whatever the length,
+    as in the reference.
 
     Returns (y (B, S, D), (k, v)): the projected, rotated K/V of the
     no-cache path (what prefill stores), else None."""
@@ -83,8 +88,15 @@ def attention(p: Dict, x, cfg: ModelConfig, *, positions,
     if cache_kv is None:
         k, v = project_kv(p, x, cfg, positions)
         kv, k_pos = (k, v), positions
-    else:
+    elif len(cache_kv) == 3:
         k, v, k_pos = cache_kv
+    elif q.shape[1] == 1:
+        k_pool, v_pool, kp_pool, bt = cache_kv
+        out = ops.flash_decode_paged(q, k_pool, v_pool, positions, kp_pool,
+                                     bt, softcap=cfg.logit_softcap)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), None
+    else:
+        k, v, k_pos = gather_paged_kv(*cache_kv)
     T = k.shape[1]
     if cache_kv is not None or T > CHUNKED_THRESHOLD:
         out = ops.flash_attention(q, k, v, positions, k_pos,

@@ -8,14 +8,19 @@ loop walks it (``params["layers"][...][l]`` are views).
 Entry points, with the reference's functional signatures:
   * ``prefill(params, batch)``            -> (last-token logits (B, V), cache)
   * ``decode_step(params, batch, cache)`` -> (logits (B, V), cache)
+  * ``prefix_prefill(params, batch, cache)`` -> (last-token logits, cache),
+    a prompt suffix prefilled through a paged cache's block pool
 
-Unlike the reference, ``decode_step`` writes the new K/V into the cache
-tensors IN PLACE and returns the same dict: the cache is the largest
-tensor of a serving run and a copy per tick would double its traffic.
+``decode_step`` takes a contiguous cache, or a paged one (``init_cache(...,
+paged=(num_blocks, block_size))``) with ``batch["block_tables"]``.  Unlike
+the reference, ``decode_step`` and ``prefix_prefill`` write the new K/V
+into the cache tensors IN PLACE and return the same dict: the cache is
+the largest tensor of a serving run and a copy per tick would double its
+traffic.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,6 +56,46 @@ def _cache_write(kc, vc, pc, k_new, v_new, pos):
     pc[rows, slot] = pos.to(pc.dtype)
 
 
+def paged_targets(pos, bt, num_blocks: int, block_size: int):
+    """Where tokens at ``pos`` are written through block tables.
+
+    pos: (B,) or (B, S) absolute positions with -1 = pad; bt: (B, MAXB)
+    with -1 = unmapped and every other entry below ``num_blocks`` (checked
+    here, once for the whole call: the paged decode kernel reads through
+    the same table unchecked).  Token (b, s) goes to offset pos %
+    block_size of pool block bt[b, pos // block_size].  Only valid targets
+    are kept: a pad, a position past the table and an unmapped entry are
+    left out (a boolean mask, one device sync), since a -1 used as an
+    index would write into the last pool block, which may hold another
+    request's K/V.  Returns index tensors (rows, cols, blocks, offsets)
+    and the positions, one entry per valid token."""
+    over = (bt >= num_blocks).any()
+    p = pos.long()
+    if p.dim() == 1:
+        p = p[:, None]
+    maxb = bt.shape[1]
+    j = torch.div(p, block_size, rounding_mode="floor")
+    blk = torch.gather(bt.long(), 1, j.clamp(0, maxb - 1))   # read only
+    ok = (p >= 0) & (j < maxb) & (blk >= 0)
+    rows, cols = ok.nonzero(as_tuple=True)
+    if bool(over):
+        raise ValueError(f"block table entry beyond the pool of {num_blocks} "
+                         "blocks")
+    p = p[rows, cols]
+    return rows, cols, blk[rows, cols], p % block_size, p
+
+
+def _paged_cache_write(kc, vc, pc, k_new, v_new, targets):
+    """Write new K/V into the global block pool, in place, at the valid
+    targets of ``paged_targets``; every other pool entry is untouched.
+
+    kc, vc: (NB, BS, K, hd); pc: (NB, BS); k_new, v_new: (B, S, K, hd)."""
+    rows, cols, blk, off, p = targets
+    kc[blk, off] = k_new[rows, cols]
+    vc[blk, off] = v_new[rows, cols]
+    pc[blk, off] = p.to(pc.dtype)
+
+
 class DecoderModel:
     """Config + parameter init + the serving entry points, on ``device``
     (the card unless the caller asks for ``"cpu"``)."""
@@ -69,27 +114,36 @@ class DecoderModel:
     def init(self, seed: int = 0) -> Dict:
         return init_params(self.cfg, seed, self.device, self.dtype)
 
-    def init_cache(self, batch_size: int, cache_len: int) -> Dict:
+    def init_cache(self, batch_size: int, cache_len: int,
+                   paged: Optional[Tuple[int, int]] = None) -> Dict:
         """Contiguous cache: k, v (L, B, T, K, hd) in the compute dtype;
-        pos (L, B, T) int32 with -1 = empty."""
+        pos (L, B, T) int32 with -1 = empty.  With ``paged = (num_blocks,
+        block_size)`` the cache is a global block pool instead: k, v
+        (L, NB, BS, K, hd) and pos (L, NB, BS), addressed through block
+        tables."""
         cfg = self.cfg
-        kv = (cfg.num_layers, batch_size, cache_len, cfg.num_kv_heads,
-              cfg.head_dim)
+        rows = (batch_size, cache_len) if paged is None else tuple(paged)
+        kv = (cfg.num_layers, *rows, cfg.num_kv_heads, cfg.head_dim)
         return {"len": 0,
                 "k": torch.zeros(kv, dtype=self.dtype, device=self.device),
                 "v": torch.zeros(kv, dtype=self.dtype, device=self.device),
                 "pos": torch.full(kv[:3], -1, dtype=torch.int32,
                                   device=self.device)}
 
-    def _block(self, p, h, positions, cache_kv=None, pos_row=None):
+    def _block(self, p, h, positions, cache_kv=None, target=None):
         """One layer.  With ``cache_kv = (k, v, pos)`` (decode) the new K/V
-        are projected from the same normed input and written at
-        ``pos_row`` before attention reads the cache."""
+        are projected from the same normed input and written at ``target``
+        (``pos_row``) before attention reads the cache; with ``cache_kv =
+        (k_pool, v_pool, pos_pool, block_tables)`` they are written at
+        ``target`` (``paged_targets``) in the pool."""
         cfg = self.cfg
         x = L.rms_norm(h, p["ln1"]["scale"], cfg.rms_eps)
         if cache_kv is not None:
             k_new, v_new = L.project_kv(p["attn"], x, cfg, positions)
-            _cache_write(*cache_kv, k_new, v_new, pos_row)
+            if len(cache_kv) == 4:
+                _paged_cache_write(*cache_kv[:3], k_new, v_new, target)
+            else:
+                _cache_write(*cache_kv, k_new, v_new, target)
         a, kv = L.attention(p["attn"], x, cfg, positions=positions,
                             cache_kv=cache_kv)
         h = h + a
@@ -121,20 +175,57 @@ class DecoderModel:
             vs.append(v)
         cache = {"len": S, "k": torch.stack(ks), "v": torch.stack(vs),
                  "pos": positions.expand(cfg.num_layers, B, S).contiguous()}
+        return self._last_logits(params, x, batch.get("length")), cache
+
+    def _last_logits(self, params, x, length=None):
+        """Final norm and logits (B, V) of each row's last real token
+        (``length`` (B,) real tokens; the last column without it)."""
+        cfg = self.cfg
         x = L.rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
-        if "length" in batch:
-            idx = torch.clamp(batch["length"].long() - 1, 0, S - 1)
-            last = x[torch.arange(B, device=x.device), idx][:, None]
-        else:
+        if length is None:
             last = x[:, -1:]
-        return L.unembed(params["embed"], last, cfg)[:, 0], cache
+        else:
+            idx = torch.clamp(length.long() - 1, 0, x.shape[1] - 1)
+            last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+        return L.unembed(params["embed"], last, cfg)[:, 0]
+
+    @torch.no_grad()
+    def prefix_prefill(self, params, batch, cache) -> Tuple[torch.Tensor,
+                                                             Dict]:
+        """Multi-token prefill THROUGH a paged cache's block pool.
+
+        Only a prompt's suffix is forwarded: its leading blocks may already
+        hold K/V (prefix-cache hits).  Per layer the suffix K/V are written
+        into the row's blocks first, then attention reads the gathered
+        pool, so each suffix token sees the cached prefix and its own
+        predecessors as a full prefill would.
+
+        batch: tokens (B, S) right-padded suffix; positions (B, S) absolute
+        positions with -1 pads; block_tables (B, MAXB); length (B,) real
+        suffix tokens.  Writes the pool in place; returns (logits of each
+        row's last real token (B, V), cache)."""
+        cfg = self.cfg
+        bt = batch["block_tables"].to(torch.int32).contiguous()
+        positions = batch["positions"].to(torch.int32).contiguous()
+        targets = paged_targets(positions, bt, *cache["pos"].shape[1:])
+        x = L.embed(params["embed"], batch["tokens"], cfg)
+        for l in range(cfg.num_layers):
+            x, _ = self._block(
+                _layer(params["layers"], l), x, positions,
+                cache_kv=(cache["k"][l], cache["v"][l], cache["pos"][l], bt),
+                target=targets)
+        cache["len"] = max(int(cache["len"]), int(positions.max()) + 1)
+        return self._last_logits(params, x, batch["length"]), cache
 
     @torch.no_grad()
     def decode_step(self, params, batch, cache) -> Tuple[torch.Tensor, Dict]:
         """One token per row.  batch: tokens (B, 1); optional positions
         (B, 1) and pos_row (B,) per-row write positions (slot-pool
         serving); without them every row advances at ``cache["len"]``.
-        Writes the cache in place; returns (logits (B, V), cache)."""
+        With block_tables (B, MAXB) the cache is paged: writes go through
+        the tables into the pool and attention reads it through the paged
+        decode kernel.  Writes the cache in place; returns (logits (B, V),
+        cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B = tokens.shape[0]
@@ -145,12 +236,21 @@ class DecoderModel:
             positions = torch.full((B, 1), cur, dtype=torch.int32,
                                    device=tokens.device)
         positions = positions.to(torch.int32).contiguous()
+        bt = batch.get("block_tables")
+        if bt is not None:
+            bt = bt.to(torch.int32).contiguous()
+            if isinstance(pos_row, int):
+                pos_row = torch.full((B,), pos_row, dtype=torch.int32,
+                                     device=tokens.device)
+            target = paged_targets(pos_row, bt, *cache["pos"].shape[1:])
+        else:
+            target = pos_row
         x = L.embed(params["embed"], tokens, cfg)
         for l in range(cfg.num_layers):
+            layer_kv = (cache["k"][l], cache["v"][l], cache["pos"][l])
             x, _ = self._block(
                 _layer(params["layers"], l), x, positions,
-                cache_kv=(cache["k"][l], cache["v"][l], cache["pos"][l]),
-                pos_row=pos_row)
+                cache_kv=layer_kv if bt is None else (*layer_kv, bt),
+                target=target)
         cache["len"] = cur + 1
-        x = L.rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
-        return L.unembed(params["embed"], x, cfg)[:, 0], cache
+        return self._last_logits(params, x), cache

@@ -1,12 +1,17 @@
 """Request-lifecycle inference engine over a fixed slot pool (port of
-``repro.serving.engine.Engine`` on its default ``SlotPool`` path).
+``repro.serving.engine.Engine``).
 
 Submit requests (QUEUED); each joins a free cache slot through a batch=1
 prefill (PREFILL); every tick decodes one token for all active slots
 (DECODE) through the model's ``decode_step`` (the flash-decode kernel on
 the card); a request finishes on EOS or max_new_tokens (FINISHED) or by
 ``cancel`` (CANCELLED).  Per-request queue wait, TTFT and TPOT land in a
-``ServingTelemetry``.  The paged cache, quantized KV and parallelism
+``ServingTelemetry``.
+
+With ``block_size`` the cache is paged: a global pool of blocks behind a
+``BlockPool``, admission by free blocks, prompt prefixes shared across
+requests (only the suffix is prefilled, through ``prefix_prefill``) and
+the paged decode kernel on every tick.  Quantized KV and parallelism
 plans of the reference are not ported yet.
 """
 from __future__ import annotations
@@ -22,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.core.telemetry import ServingTelemetry
 from repro_torch.serving.request import (GenerationResult, InferenceRequest,
                                          RequestState, TokenCallback)
+from repro_torch.serving.paged import BlockPool
 from repro_torch.serving.sampling import GREEDY, SamplingParams, sample_tokens
 from repro_torch.serving.slots import SlotPool
 
@@ -31,11 +37,15 @@ def make_generate_step(model):
     per-slot state enters as (B,) arrays; ``positions`` is each slot's
     true length (its next write position)."""
     def generate_step(params, cache, tokens, positions, seeds, steps,
-                      temperature, top_k, top_p):
+                      temperature, top_k, top_p, block_tables=None):
         dev = model.device
         pos = torch.as_tensor(positions, dtype=torch.int32, device=dev)
         batch = {"tokens": torch.as_tensor(tokens, device=dev).long()[:, None],
                  "positions": pos[:, None].contiguous(), "pos_row": pos}
+        if block_tables is not None:      # paged: through the block pool
+            batch["block_tables"] = torch.as_tensor(block_tables,
+                                                    dtype=torch.int32,
+                                                    device=dev)
         logits, cache = model.decode_step(params, batch, cache)
         return sample_tokens(logits, seeds, steps, temperature, top_k,
                              top_p), cache
@@ -50,15 +60,13 @@ class Engine:
                  prefill_chunk: Optional[int] = None,
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
+                 prefix_cache: bool = True,
                  kv_dtype: Optional[str] = None,
                  telemetry: Optional[ServingTelemetry] = None,
                  plan=None, device="cuda", clock=time.monotonic):
-        if block_size is not None or num_blocks is not None:
-            raise NotImplementedError("paged KV is not ported yet "
-                                      "(ROADMAP.md queue 1, item 6)")
         if kv_dtype not in (None, "bf16"):
-            raise NotImplementedError("quantized KV is not ported yet "
-                                      "(ROADMAP.md queue 1, item 7)")
+            raise NotImplementedError("quantized KV is not ported yet: it is "
+                                      "slice 3 (ROADMAP.md queue 1, item 7)")
         if plan is not None:
             raise NotImplementedError("parallelism plans are not ported yet "
                                       "(ROADMAP.md queue 1, item 13)")
@@ -79,8 +87,26 @@ class Engine:
         self.telemetry = telemetry if telemetry is not None \
             else ServingTelemetry()
         self._generate = make_generate_step(model)
-        self.cache = model.init_cache(slots, cache_len)
-        self.pool = SlotPool(slots)
+        self.paged = block_size is not None
+        if self.paged:
+            self.block_size = int(block_size)
+            self.max_blocks = -(-cache_len // self.block_size)
+            # default: the contiguous layout's memory, in whole blocks
+            self.num_blocks = (int(num_blocks) if num_blocks is not None
+                               else slots * self.max_blocks)
+            self.cache = model.init_cache(
+                slots, cache_len, paged=(self.num_blocks, self.block_size))
+            self.pool = BlockPool(
+                slots, num_blocks=self.num_blocks,
+                block_size=self.block_size,
+                max_blocks_per_slot=self.max_blocks,
+                prefix_cache=prefix_cache, kv_dtype=self.kv_dtype)
+        else:
+            if num_blocks is not None:
+                raise ValueError("num_blocks needs block_size")
+            self.block_size = self.num_blocks = None
+            self.cache = model.init_cache(slots, cache_len)
+            self.pool = SlotPool(slots)
         self.queue: List[InferenceRequest] = []
         self.requests: Dict[int, InferenceRequest] = {}
         self.finished: Dict[int, GenerationResult] = {}
@@ -154,6 +180,9 @@ class Engine:
         req.state = RequestState.PREFILL
         req.metrics.t_prefill_start = self.clock()
         S = int(min(len(req.prompt), self.prefill_len))
+        if self.paged:
+            self._join_paged(slot, req, S)
+            return
         Sp = self._bucket_len(S)
         toks = np.zeros(Sp, np.int64)
         toks[:S] = req.prompt[:S]
@@ -167,6 +196,45 @@ class Engine:
         self.pool.scatter_prefill(self.cache, cache1, slot)
         self.pool.acquire(slot, req.rid, S)
         req.metrics.prefilled_tokens = S
+        self._finish_join(slot, req, logits)
+
+    def _join_paged(self, slot: int, req: InferenceRequest, S: int):
+        """Paged join: map blocks (prefix hits shared), prefill only the
+        suffix THROUGH the pool, publish the new full blocks."""
+        prompt = np.asarray(req.prompt[:S], np.int32)
+        cached = self.pool.acquire_blocks(slot, req.rid, prompt,
+                                          req.sampling.max_new_tokens)
+        self._clear_fresh_blocks()
+        Ssuf = S - cached
+        Sp = self._bucket_len(Ssuf)
+        toks = np.zeros(Sp, np.int64)
+        toks[:Ssuf] = prompt[cached:]
+        pos = np.arange(Sp, dtype=np.int32) + cached
+        pos[Ssuf:] = -1                   # pads: no write, dead keys
+        dev = self.device
+        batch = {"tokens": torch.as_tensor(toks, device=dev)[None],
+                 "positions": torch.as_tensor(pos, device=dev)[None],
+                 "length": torch.as_tensor([Ssuf], device=dev),
+                 "block_tables": torch.as_tensor(
+                     self.pool.block_tables[slot:slot + 1], device=dev)}
+        logits, self.cache = self.model.prefix_prefill(self.params, batch,
+                                                       self.cache)
+        self.pool.register_prefix(slot, prompt)
+        req.metrics.prefix_cached_tokens = cached
+        req.metrics.prefilled_tokens = Ssuf
+        self._finish_join(slot, req, logits)
+
+    def _clear_fresh_blocks(self):
+        """Set the cache positions of newly allocated blocks to -1 before
+        anything writes to them, so a recycled block shows none of its
+        previous owner's keys (one indexed fill over all layers)."""
+        fresh = self.pool.drain_fresh()
+        if fresh:
+            self.cache["pos"][:, torch.as_tensor(fresh, device=self.device)] \
+                = -1
+
+    def _finish_join(self, slot: int, req: InferenceRequest, logits):
+        """Sample token 0 and arm the slot's decode state."""
         sp = req.sampling
         first = sample_tokens(logits, [sp.seed], [0], [sp.temperature],
                               [sp.top_k], [sp.top_p])
@@ -180,7 +248,7 @@ class Engine:
         self._steps[slot] = 1
         req.state = RequestState.DECODE
         req.metrics.t_first_token = self.clock()
-        last = self._is_last(req, tok)
+        last = self._is_last(req, tok) or self._at_capacity(slot)
         req.emit(tok, last)
         # the callback may have cancelled this request (reentrant cancel)
         if last and self._slot_req[slot] is req:
@@ -190,6 +258,11 @@ class Engine:
         sp = req.sampling
         return (sp.eos_token is not None and tok == sp.eos_token) \
             or len(req.generated) + 1 >= sp.max_new_tokens
+
+    def _at_capacity(self, slot: int) -> bool:
+        """Paged slots retire at cache_len (no ring wraparound: a shared
+        block may hold another request's history)."""
+        return self.paged and self.pool.lengths[slot] >= self.cache_len
 
     @property
     def kv_bytes_per_token(self) -> int:
@@ -201,7 +274,11 @@ class Engine:
         bpt = self.kv_bytes_per_token
         req.metrics.kv_used_bytes = int(
             min(int(self.pool.lengths[slot]), self.cache_len)) * bpt
-        req.metrics.kv_allocated_bytes = self.cache_len * bpt
+        if self.paged:
+            req.metrics.kv_allocated_bytes = (
+                self.pool.allocated_blocks(slot) * self.block_size * bpt)
+        else:
+            req.metrics.kv_allocated_bytes = self.cache_len * bpt
 
     def _release(self, slot: int):
         self.pool.release(slot)
@@ -237,14 +314,32 @@ class Engine:
             free = self.pool.free_slots()
             if not free:
                 break
+            if self.paged:
+                # admission blocks on free BLOCKS: the head request's
+                # prompt and reserved growth must fit (FIFO, no reordering)
+                head = self.queue[0]
+                S = int(min(len(head.prompt), self.prefill_len))
+                if not self.pool.can_admit(
+                        np.asarray(head.prompt[:S], np.int32),
+                        head.sampling.max_new_tokens):
+                    break
             self._join(free[0], self.queue.pop(0))
             admitted += 1
         if self.pool.num_active == 0:
             return admitted > 0
+        extra = {}
+        if self.paged:
+            # map the block of each active row's next write position
+            for slot in range(self.slots):
+                if self._slot_req[slot] is not None:
+                    self.pool.ensure_block(slot)
+            self._clear_fresh_blocks()
+            extra["block_tables"] = self.pool.block_tables
         self.cache["len"] = int(self.pool.lengths.max())
         tok, self.cache = self._generate(
             self.params, self.cache, self.last_tok, self.pool.positions(),
-            self._seeds, self._steps, self._temp, self._top_k, self._top_p)
+            self._seeds, self._steps, self._temp, self._top_k, self._top_p,
+            **extra)
         tok_host = tok.cpu().numpy()
         self.last_tok = tok_host.copy()
         self.ticks += 1
@@ -256,7 +351,7 @@ class Engine:
             t = int(tok_host[slot])
             self.pool.advance(slot)
             self._steps[slot] += 1
-            last = self._is_last(req, t)
+            last = self._is_last(req, t) or self._at_capacity(slot)
             req.emit(t, last)
             if last and self._slot_req[slot] is req:
                 self._retire(slot)
@@ -285,7 +380,13 @@ class Engine:
         return [self.finished[r] for r in rids]
 
     def stats(self) -> Dict:
-        """Aggregate serving metrics (p50/p99 TTFT, TPOT, queue wait)."""
+        """Aggregate serving metrics (p50/p99 TTFT, TPOT, queue wait; with
+        a paged cache, the pool and prefix-cache stats)."""
         out = self.telemetry.summary()
         out["kv_dtype"] = self.kv_dtype
+        if self.paged:
+            out["block_size"] = self.block_size
+            out["num_blocks"] = self.num_blocks
+            out["free_blocks"] = self.pool.free_blocks
+            out["prefix"] = self.pool.prefix_stats()
         return out

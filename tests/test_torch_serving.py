@@ -175,6 +175,7 @@ def test_engine_lifecycle_cancel_and_stats(models):
     s = e.stats()
     assert s["finished"] == 1 and s["cancelled"] == 1
     assert s["output_tokens"] == 4
-    for kw in ({"block_size": 16}, {"kv_dtype": "int8"}, {"plan": "auto"}):
+    for kw in ({"kv_dtype": "int8"}, {"plan": "auto"}):
         with pytest.raises(NotImplementedError):
             Engine(tm, tp, device="cpu", **kw)
+    assert Engine(tm, tp, device="cpu", block_size=16).paged
