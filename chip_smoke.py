@@ -26,11 +26,28 @@ Phases, each printing its own lines:
               contiguous engine's on the same mix; then a request on a
               recycled block must equal the same request on a fresh engine.
 
+  7. quant    the contiguous engine with kv_dtype int8, then fp8, serves the
+              mix of phase 5: the quantized decode kernel 18 x ticks and the
+              bf16 one never, byte-true KV accounting, a tick profile; tokens
+              are compared with the bf16 engine's for information only.  Then
+              bf16, int8 and fp8 engines serve the mix in turns (bf16, int8,
+              fp8, fp8, int8, bf16) for TTFT / TPOT / decode tok/s side by
+              side.
+
 The kernel phase also holds the paged decode (flash_decode_paged) against
 its plain version on pools read through shuffled tables (shared blocks, -1
 entries, block sizes 8/16/64), requires it to be bit-equal to flash_decode
 on the gathered view, and rejects two paged negative controls (an unmapped
-entry read as block 0, a recycled block's stale positions left live).
+entry read as block 0, a recycled block's stale positions left live).  It
+holds the quantized decode (flash_decode_quant, int8 and fp8) against its
+plain version on the decode cases, requires it with every scale 1 to be
+bit-equal to flash_decode on the values widened to bf16, and rejects three
+scale faults (every scale read as 1, key t+1's scales for key t, v_scale
+ignored).  The model phase also checks the quantized cache at full width:
+prefill logits bit-equal to bf16's, the decode step's cache write bit-equal
+to quantize_kv on the CPU of the K/V it projected, in every layer, and its
+logits within a bound of the same step on the CPU, the bound derived from
+the bf16 step's card-vs-CPU difference in the same run.
 
 Exits nonzero, uncaught, on any failed check, and when no CUDA device is
 present.  The last line is {"ok": true, "device": {...}}.
@@ -51,6 +68,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 BF16_FLOPS = 989e12                # H100 SXM dense bf16, published
+INT8_OPS = 1979e12                 # H100 SXM dense int8 and fp8, published
 # Kernel vs plain, bf16 out, N(0,1) in: |out - ref| <= KERNEL_RTOL |ref| +
 # min(KERNEL_ATOL, KERNEL_ATOL_RMS x RMS of the ref's head vector).  The
 # relative term covers one bf16 ulp of rounding (2^-7); the RMS term scales
@@ -68,6 +86,26 @@ SERVE_PROMPTS = (5, 17, 64, 300, 1000, 3072)
 PAGED_MIX = (("sys", 1000), ("sys", 5), (None, 17), (None, 64), ("sys", 300),
              (None, 3072), ("sys", 17), (None, 5))
 SYS_LEN = 2048
+QUANT_KV = ("int8", "fp8")
+# The quantized decode step on the card against the same step on the CPU:
+# within QUANT_MODEL_FACTOR x the bf16 step's card-vs-CPU max |delta logit|
+# in the same run.  Both differences come from the same sources (cuBLAS vs
+# CPU reduction order through 18 layers, kernel vs plain attention order),
+# and the max over 256000 bf16 logits moves in steps of one ulp of the
+# logit it lands on, so the factor lets it land two binades higher.
+QUANT_MODEL_FACTOR = 4.0
+DECODE_CASES = [  # (name, (B, H, K, d, T, row lengths), kw)
+    ("engine B4 H8 K1 d256 T3328", (4, 8, 1, 256, 3328, [3328, 1000, 0, 17]),
+     {}),
+    ("ragged T3001 + ring holes", (4, 8, 1, 256, 3001, [3001, 2999, 5, 0]),
+     {"holes": 64}),
+    ("qwen3-32b B8 H64 K8 d128 T4096",
+     (8, 64, 8, 128, 4096, [4096, 3000, 2048, 1024, 513, 100, 1, 0]), {}),
+    ("window 64", (4, 8, 1, 256, 1024, [1024, 700, 40, 0]), {"window": 64}),
+    ("softcap 30 MHA d128", (2, 4, 4, 128, 777, [777, 300]),
+     {"softcap": 30.0}),
+    ("GQA G2 d64", (3, 8, 4, 64, 515, [515, 200, 0]), {}),
+]
 
 
 def check(cond, msg):
@@ -207,19 +245,9 @@ def phase_kernels():
     results = {}
 
     # --- flash decode -----------------------------------------------------
-    cases = [
-        ("engine B4 H8 K1 d256 T3328", (4, 8, 1, 256, 3328, [3328, 1000, 0, 17]), {}),
-        ("ragged T3001 + ring holes", (4, 8, 1, 256, 3001, [3001, 2999, 5, 0]),
-         {"holes": 64}),
-        ("qwen3-32b B8 H64 K8 d128 T4096",
-         (8, 64, 8, 128, 4096, [4096, 3000, 2048, 1024, 513, 100, 1, 0]), {}),
-        ("window 64", (4, 8, 1, 256, 1024, [1024, 700, 40, 0]), {"window": 64}),
-        ("softcap 30 MHA d128", (2, 4, 4, 128, 777, [777, 300]),
-         {"softcap": 30.0}),
-        ("GQA G2 d64", (3, 8, 4, 64, 515, [515, 200, 0]), {}),
-    ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, (B, H, K, d, T, lens), kw in cases:
+    for name, (B, H, K, d, T, lens), kw in DECODE_CASES:
+        kw = dict(kw)
         holes = kw.pop("holes", 0)
         q, k, v, qp, kp = _decode_inputs(B, H, K, d, T, lens, holes)
         want = ref.flash_decode_ref(q, k, v, qp, kp, **kw)
@@ -480,6 +508,100 @@ def phase_paged_kernel():
     return {"flash_decode_paged": result}
 
 
+def _dequant_sdpa(q, kq, vq, ks, vs, mask):
+    """The quantized decode by library calls: dequantize to bf16, then
+    scaled_dot_product_attention."""
+    k = (kq.float() * ks[..., None]).bfloat16()
+    v = (vq.float() * vs[..., None]).bfloat16()
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+
+
+def phase_quant_kernel():
+    """flash_decode_quant, int8 and fp8, against its plain version on the
+    decode cases; with every scale 1, bit-equal to flash_decode on the
+    values widened to bf16; three scale faults rejected; timing."""
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_quant,
+                                                  split_chunk)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results = {}
+    for kv_dtype in QUANT_KV:
+        for name, (B, H, K, d, T, lens), kw in DECODE_CASES:
+            kw = dict(kw)
+            holes = kw.pop("holes", 0)
+            q, k, v, qp, kp = _decode_inputs(B, H, K, d, T, lens, holes)
+            kq, ks = quant.quantize_kv(k, kv_dtype)
+            vq, vs = quant.quantize_kv(v, kv_dtype)
+            want = quant.flash_decode_quant_ref(q, kq, vq, qp, kp, ks, vs,
+                                                **kw)
+            got = flash_decode_quant(q, kq, vq, qp, kp, ks, vs, **kw)
+            ones = torch.ones_like(ks)
+            unit = flash_decode_quant(q, kq, vq, qp, kp, ones, ones, **kw)
+            same = flash_decode(q, kq.bfloat16(), vq.bfloat16(), qp, kp, **kw)
+            dead = ~_valid_pairs(qp[:, None], kp, True,
+                                 kw.get("window")).any(-1)[:, 0]
+            torch.cuda.synchronize()
+            ok, err, worst = _close(got, want)
+            bitwise = torch.equal(unit, same)
+            print(f"kernel flash_decode_quant {kv_dtype} [{name}] "
+                  f"{split_chunk(B, K, T, sms)} keys per split: max_abs_err "
+                  f"{err:.3e}, worst err/limit {worst:.3f} (limit "
+                  f"{KERNEL_TOL}) {'ok' if ok else 'FAIL'}; every scale 1: "
+                  f"bit-equal to flash_decode on the values in bf16: "
+                  f"{bitwise}")
+            check(ok, f"flash_decode_quant {kv_dtype} disagrees with plain: "
+                  f"{name}")
+            check(bitwise, f"flash_decode_quant {kv_dtype} with unit scales "
+                  f"is not bit-equal to flash_decode: {name}")
+            check(bool((got[dead] == 0).all()), f"flash_decode_quant: a row "
+                  f"with no valid key must be zeros ({name})")
+            if name.startswith("engine"):
+                main = (q, kq, vq, qp, kp, ks, vs, want, err)
+
+        q, kq, vq, qp, kp, ks, vs, want, err = main
+        ones = torch.ones_like(ks)
+        tag = f"flash_decode_quant {kv_dtype}"
+        _reject(f"{tag} reads every scale as 1",
+                flash_decode_quant(q, kq, vq, qp, kp, ones, ones), want)
+        _reject(f"{tag} takes key t+1's scales for key t",
+                flash_decode_quant(q, kq, vq, qp, kp, ks.roll(-1, 1),
+                                   vs.roll(-1, 1)), want)
+        _reject(f"{tag} ignores v_scale",
+                flash_decode_quant(q, kq, vq, qp, kp, ks, ones), want)
+        B, _, H, d = q.shape
+        T, K = kq.shape[1], kq.shape[2]
+        live = int((kp >= 0).sum())
+        nbytes = (q.numel() * 2 + live * K * (d * kq.element_size() + 4) * 2
+                  + kp.numel() * 4 + qp.numel() * 4 + q.numel() * 2)
+        ops = 4 * H * live * d + 2 * K * live * d       # + the dequantizing
+        mask = (kp >= 0)[:, None, None, :]
+        name = f"flash_decode_quant_{kv_dtype}"
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:377",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: flash_decode_quant(q, kq, vq, qp, kp, ks,
+                                                     vs)),
+            "eager_ms": eager_ms(lambda: flash_decode_quant(q, kq, vq, qp, kp,
+                                                            ks, vs)),
+            "plain_ms": time_ms(lambda: quant.flash_decode_quant_ref(
+                q, kq, vq, qp, kp, ks, vs)),
+            "library_ms": time_ms(lambda: _dequant_sdpa(q, kq, vq, ks, vs,
+                                                        mask)),
+            "library_call": "dequantize to bf16 + scaled_dot_product_attention",
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / INT8_OPS
+            else "operations",
+            "shape": f"B{B} H{H} K{K} d{d} T{T} {kv_dtype}, {live} live keys",
+        }
+        print("kernel_timing " + json.dumps(results[name]))
+    return results
+
+
 # ---------------------------------------------------------------------------
 def phase_model(cfg, device, prompt_len, pad_len, seed=0):
     """Prefill a right-padded prompt, decode one token, and hold the decode
@@ -518,6 +640,126 @@ def phase_model(cfg, device, prompt_len, pad_len, seed=0):
     check(ok and bool(torch.isfinite(a).all()),
           "decode logits disagree with the prefill over prompt + token")
     return model, params
+
+
+def _same_bits(a, b):
+    """Same shape and bits (one-byte types compared as bytes)."""
+    if a.element_size() == 1 and b.element_size() == 1:
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _to_device(tree, device):
+    """A copy of a nested dict of tensors (a cache, the params) on
+    ``device``; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, copy=True)
+    return tree
+
+
+def phase_quant_model(model, params, device, prompt_len, pad_len, seed=0):
+    """The quantized cache at full width, for int8 and fp8: prefill logits
+    bit-equal to bf16's and its cache equal to quantize_kv of bf16's; one
+    decode step whose cache write is bit-equal, in every layer, to
+    quantize_kv on the CPU of the K/V the step projected; its logits
+    within QUANT_MODEL_FACTOR x the bf16 step's card-vs-CPU difference of
+    the same step on the CPU (plain versions, the same params, the same
+    cache); and a cache whose scales all read 1 rejected by that bound."""
+    from repro_torch.kernels.quant import quantize_kv
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import DecoderModel
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(seed + 1)
+    prompt = torch.randint(2, cfg.vocab_size, (prompt_len,), generator=g)
+    toks = torch.zeros(1, pad_len, dtype=torch.long)
+    toks[0, :prompt_len] = prompt
+    pos = torch.arange(pad_len, dtype=torch.int32)
+    pos[prompt_len:] = -1
+    batch = {"tokens": toks.to(device), "positions": pos[None].to(device),
+             "length": torch.tensor([prompt_len], device=device)}
+    cpu = DecoderModel(cfg, device="cpu")
+    cpu_params = _to_device(params, "cpu")
+
+    def step(m, p, cache):
+        dev = m.device
+        logits, _ = m.decode_step(p, {
+            "tokens": torch.tensor([[nxt]], device=dev),
+            "positions": torch.tensor([[prompt_len]], dtype=torch.int32,
+                                      device=dev),
+            "pos_row": torch.tensor([prompt_len], dtype=torch.int32,
+                                    device=dev)}, cache)
+        return logits.float().cpu()
+
+    logits_bf, cache_bf = model.prefill(params, batch)
+    nxt = int(torch.argmax(logits_bf[0].float()))
+    card = step(model, params, _to_device(cache_bf, device))
+    delta_bf = float((card - step(cpu, cpu_params,
+                                  _to_device(cache_bf, "cpu"))).abs().max())
+    bound = QUANT_MODEL_FACTOR * delta_bf
+    print(f"model {cfg.name} bf16 cache: decode step on the card vs on the "
+          f"CPU max |delta logit| {delta_bf:.3e} (max |logit| "
+          f"{float(card.abs().max()):.2f}) -> quantized bound "
+          f"{QUANT_MODEL_FACTOR} x = {bound:.3e}")
+    check(bound > 0, "the bf16 card-vs-CPU delta is 0: no bound to derive")
+    out = {"bf16_card_vs_cpu": delta_bf, "bound": bound}
+    for kv_dtype in QUANT_KV:
+        model.kv_dtype = kv_dtype
+        try:
+            logits_q, cache_q = model.prefill(params, batch)
+        finally:
+            model.kv_dtype = "bf16"
+        same_prefill = torch.equal(logits_q, logits_bf) and all(
+            _same_bits(a, b) for key in ("k", "v") for a, b in zip(
+                quantize_kv(cache_bf[key], kv_dtype),
+                (cache_q[key], cache_q[key + "_scale"])))
+        projected, orig = [], L.project_kv
+
+        def capture(*a, **kw):
+            projected.append(orig(*a, **kw))
+            return projected[-1]
+        card_cache = _to_device(cache_q, device)
+        L.project_kv = capture
+        try:
+            card = step(model, params, card_cache)
+        finally:
+            L.project_kv = orig
+        slot = prompt_len % pad_len
+        writes_equal = len(projected) == cfg.num_layers and all(
+            _same_bits(got.cpu(), want)
+            for l, (k_new, v_new) in enumerate(projected)
+            for key, new in (("k", k_new), ("v", v_new))
+            for got, want in zip(
+                (card_cache[key][l][:, slot],
+                 card_cache[key + "_scale"][l][:, slot]),
+                (t[:, 0] for t in quantize_kv(new.cpu(), kv_dtype))))
+        cpu_logits = step(cpu, cpu_params, _to_device(cache_q, "cpu"))
+        delta = float((card - cpu_logits).abs().max())
+        bad = _to_device(cache_q, device)
+        bad["k_scale"].fill_(1.0)
+        bad["v_scale"].fill_(1.0)
+        moved = float((step(model, params, bad) - cpu_logits).abs().max())
+        ok = delta <= bound and bool(torch.isfinite(card).all())
+        print(f"model {cfg.name} L{cfg.num_layers} D{cfg.d_model} {kv_dtype} "
+              f"cache: prefill logits bit-equal to bf16 and cache == "
+              f"quantize_kv(bf16 cache): {same_prefill}; decode-step cache "
+              f"write == quantize_kv on the CPU of its projected K/V in all "
+              f"{cfg.num_layers} layers: {writes_equal}; decode step card vs "
+              f"CPU max |delta logit| {delta:.3e} (bound {bound:.3e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        print(f"negative control [{kv_dtype} cache read with every scale 1]: "
+              f"max |delta logit| {moved:.3e} (bound {bound:.3e}) -> "
+              f"{'FAIL: passed' if moved <= bound else 'rejected'}")
+        check(same_prefill, f"{kv_dtype} prefill differs from bf16's")
+        check(writes_equal, f"{kv_dtype} decode-step cache write differs "
+              "from quantize_kv")
+        check(ok, f"{kv_dtype} decode step: card and CPU differ beyond the "
+              "bound")
+        check(moved > bound, f"the {kv_dtype} model bound accepts a cache "
+              "whose scales are all 1")
+        out[kv_dtype] = {"card_vs_cpu": delta, "control_moved": moved}
+    return out
 
 
 def _prompts(cfg, lens, seed=42):
@@ -650,7 +892,111 @@ def phase_serving(model, params, device, lens, max_new, prefill_len,
              "ticks": e.ticks, "requests": len(res),
              "tokens_compared": compared, "launches": {
                  "flash_decode": n_dec, "flash_attention_fwd": n_fa}}
-    return stats
+    return stats, [r.tokens for r in res]
+
+
+def phase_quant_serving(model, params, device, kv_dtype, lens, max_new,
+                        prefill_len, cache_len, bf16_tokens):
+    """The contiguous engine with a quantized cache serves the mix of
+    phase 5: launch counts (the quantized decode per tick, never the bf16
+    one), byte-true KV accounting, latency and a tick profile; its tokens
+    against the bf16 engine's are information, not a check."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_paged,
+                                                  flash_decode_quant)
+    from repro_torch.kernels.quant import kv_bytes_per_vector
+    from repro_torch.serving import Engine, SamplingParams
+    cfg = model.cfg
+    prompts = _prompts(cfg, lens)
+    sp = SamplingParams(max_new_tokens=max_new, eos_token=None)
+    kw = dict(prefill_len=prefill_len, cache_len=cache_len,
+              kv_dtype=kv_dtype, device=device)
+    on_card = device != "cpu"
+    try:
+        # warm-up of the quantized path (first-call costs stay out)
+        Engine(model, params, slots=2, **kw).generate([prompts[0]], sp)
+        e = Engine(model, params, slots=4, **kw)
+        rate = _decode_rate(e, device)
+        flash_decode.launches = flash_decode_paged.launches = 0
+        flash_decode_quant.launches = flash_attention_fwd.launches = 0
+        res = e.generate(prompts, sp)
+        n_q, n_fa = flash_decode_quant.launches, flash_attention_fwd.launches
+        n_bf = flash_decode.launches + flash_decode_paged.launches
+        long_prefills = sum(min(n, prefill_len) > 2048 for n in lens)
+        L = cfg.num_layers
+        print(f"quantized serving {kv_dtype} launches: flash_decode_quant "
+              f"{n_q} (want {L} x {e.ticks} ticks), bf16 decode kernels "
+              f"{n_bf} (want 0), flash_attention_fwd {n_fa} (want {L} x "
+              f"{long_prefills} long prefills)")
+        check(n_q == L * e.ticks * on_card and n_bf == 0
+              and n_fa == L * long_prefills * on_card,
+              f"quantized serving {kv_dtype}: kernel launch counts do not "
+              "match the path")
+        check(all(len(r.tokens) == max_new for r in res),
+              "every request must produce max_new tokens")
+        s = e.stats()
+        bpt = e.kv_bytes_per_token
+        want_bpt = L * 2 * cfg.num_kv_heads * kv_bytes_per_vector(
+            cfg.head_dim, kv_dtype)
+        print(f"quantized serving {kv_dtype}: kv_bytes_per_token {bpt} (want "
+              f"{want_bpt}; bf16 {L * 2 * cfg.num_kv_heads * cfg.head_dim * 2}"
+              f"), kv_utilization {s['kv_utilization']:.4f}, stats kv_dtype "
+              f"{s['kv_dtype']}")
+        check(bpt == want_bpt and s["kv_dtype"] == kv_dtype,
+              f"quantized serving {kv_dtype}: KV accounting")
+        same = sum(next((j for j, (a, b) in enumerate(zip(r.tokens, w))
+                         if a != b), len(w)) for r, w in zip(res, bf16_tokens))
+        print(f"quantized serving {kv_dtype} (information): tokens equal to "
+              f"the bf16 engine's up to each request's first difference on "
+              f"{same}/{sum(map(len, bf16_tokens))}")
+        busy = profile_ticks(model, params, device, prompts[:4], prefill_len,
+                             cache_len, kv_dtype=kv_dtype) if on_card \
+            else None
+    finally:
+        model.kv_dtype = "bf16"
+    return {"device_busy_share": busy,
+            "ttft_p50_ms": s["ttft_p50_ms"], "tpot_p50_ms": s["tpot_p50_ms"],
+            "decode_tok_per_s": rate(), "ticks": e.ticks,
+            "requests": len(res), "tokens_equal_to_bf16": same,
+            "kv_bytes_per_token": bpt,
+            "kv_utilization": s["kv_utilization"],
+            "launches": {f"flash_decode_quant_{kv_dtype}": n_q,
+                         "flash_attention_fwd": n_fa}}
+
+
+def serving_in_turns(model, params, device, lens, max_new, prefill_len,
+                     cache_len, order=("bf16", "int8", "fp8", "fp8", "int8",
+                                       "bf16")):
+    """TTFT p50, TPOT p50 and decode tok/s of the contiguous engine on the
+    mix of phase 5 with each kv_dtype, run in turns (bf16, int8, fp8, fp8,
+    int8, bf16) so that drift of the host's speed over the call falls on
+    every dtype alike.  Returns {kv_dtype: [one dict per run]}."""
+    from repro_torch.serving import Engine, SamplingParams
+    prompts = _prompts(model.cfg, lens)
+    sp = SamplingParams(max_new_tokens=max_new, eos_token=None)
+    runs = {}
+    try:
+        for kv_dtype in order:
+            e = Engine(model, params, slots=4, prefill_len=prefill_len,
+                       cache_len=cache_len, kv_dtype=kv_dtype, device=device)
+            rate = _decode_rate(e, device)
+            e.generate(prompts, sp)
+            s = e.stats()
+            runs.setdefault(kv_dtype, []).append(
+                {"ttft_p50_ms": s["ttft_p50_ms"],
+                 "tpot_p50_ms": s["tpot_p50_ms"], "decode_tok_per_s": rate()})
+    finally:
+        model.kv_dtype = "bf16"
+    for kv_dtype, rs in runs.items():
+        print(f"serving in turns, {kv_dtype}: TPOT p50 "
+              + ", ".join(f"{r['tpot_p50_ms']:.3f}" for r in rs)
+              + " ms; TTFT p50 "
+              + ", ".join(f"{r['ttft_p50_ms']:.2f}" for r in rs)
+              + " ms; decode "
+              + ", ".join(f"{r['decode_tok_per_s']:.1f}" for r in rs)
+              + " tok/s")
+    return runs
 
 
 def paged_mix(cfg, sys_len, parts, seed=43):
@@ -792,13 +1138,14 @@ def phase_paged_serving(model, params, device, prompts, n_sys, sys_len,
 
 
 def profile_ticks(model, params, device, prompts, prefill_len, cache_len,
-                  ticks=8, block_size=None):
+                  ticks=8, block_size=None, kv_dtype=None):
     """Share of wall time the card is busy over ``ticks`` decode ticks of a
     4-slot engine (torch.profiler), and the kernels that take the most."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine, SamplingParams
     e = Engine(model, params, slots=4, prefill_len=prefill_len,
-               cache_len=cache_len, block_size=block_size, device=device)
+               cache_len=cache_len, block_size=block_size, kv_dtype=kv_dtype,
+               device=device)
     for p in prompts:
         e.submit(p, SamplingParams(max_new_tokens=10 * ticks, eos_token=None))
     e.step()                                    # joins + first tick
@@ -814,7 +1161,8 @@ def profile_ticks(model, params, device, prompts, prefill_len, cache_len,
             if ev.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(ev.self_device_time_total for ev in kern)
     top = sorted(kern, key=lambda ev: -ev.self_device_time_total)[:6]
-    print(f"profile{' (paged)' if block_size else ''}: {ticks} decode ticks, "
+    print(f"profile{' (paged)' if block_size else ''}"
+          f"{f' ({kv_dtype})' if kv_dtype else ''}: {ticks} decode ticks, "
           f"wall {wall_us / ticks:.0f} us/tick,"
           f" device busy {dev_us / ticks:.0f} us/tick "
           f"({dev_us / wall_us:.1%} of wall)")
@@ -835,11 +1183,14 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     kernels.update(phase_paged_kernel())
+    kernels.update(phase_quant_kernel())
     cfg = get_config("gemma-2b")
     model, params = phase_model(cfg, "cuda", 3072, 3200)
-    stats = phase_serving(model, params, "cuda", SERVE_PROMPTS, 32,
-                          prefill_len=3072, cache_len=3328,
-                          alone_idx=(2, 5))
+    print("quant_model_stats " + json.dumps(
+        phase_quant_model(model, params, "cuda", 3072, 3200)))
+    stats, bf16_tokens = phase_serving(model, params, "cuda", SERVE_PROMPTS,
+                                       32, prefill_len=3072, cache_len=3328,
+                                       alone_idx=(2, 5))
     print(f"serving {cfg.name} on {smi}: TTFT p50 {stats['ttft_p50_ms']:.2f} "
           f"ms, TPOT p50 {stats['tpot_p50_ms']:.3f} ms, decode "
           f"{stats['decode_tok_per_s']:.1f} tok/s")
@@ -857,11 +1208,28 @@ def main() -> int:
           f"TPOT p50 {paged['contiguous_tpot_p50_ms']:.3f} ms, decode "
           f"{paged['contiguous_decode_tok_per_s']:.1f} tok/s")
     print("paged_serving_stats " + json.dumps(paged))
-    # each kernel's launches on the serving paths: the contiguous engine's
-    # run and the paged engine's run, each counted from 0
+    quant = {kv_dtype: phase_quant_serving(
+        model, params, "cuda", kv_dtype, SERVE_PROMPTS, 32, prefill_len=3072,
+        cache_len=3328, bf16_tokens=bf16_tokens) for kv_dtype in QUANT_KV}
+    turns = serving_in_turns(model, params, "cuda", SERVE_PROMPTS, 32,
+                             prefill_len=3072, cache_len=3328)
+    mean = {dt: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+            for dt, rs in turns.items()}
+    for kv_dtype in QUANT_KV:
+        q, b = mean[kv_dtype], mean["bf16"]
+        print(f"quantized serving {cfg.name} {kv_dtype} on {smi}, mean of "
+              f"its two turns: TTFT p50 {q['ttft_p50_ms']:.2f} ms, TPOT p50 "
+              f"{q['tpot_p50_ms']:.3f} ms, decode "
+              f"{q['decode_tok_per_s']:.1f} tok/s; bf16 engine in the same "
+              f"turns: TTFT p50 {b['ttft_p50_ms']:.2f} ms, TPOT p50 "
+              f"{b['tpot_p50_ms']:.3f} ms, decode {b['decode_tok_per_s']:.1f} "
+              f"tok/s")
+    print("quant_serving_stats " + json.dumps({**quant, "turns": turns}))
+    # each kernel's launches on the serving paths: the contiguous, paged,
+    # int8 and fp8 engines' runs, each counted from 0
     for name, r in kernels.items():
-        r["launches"] = (stats["launches"].get(name, 0)
-                         + paged["launches"].get(name, 0))
+        r["launches"] = sum(run["launches"].get(name, 0) for run in
+                            (stats, paged, *quant.values()))
     line = [{k: r[k] for k in ("name", "route", "source", "replaces",
                                "launches", "max_abs_err", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms")}

@@ -1,13 +1,22 @@
-// Grouped split-KV flash decode for Hopper (sm_90a), bf16 in, f32 math.
+// Grouped split-KV flash decode for Hopper (sm_90a), f32 math.
 //
 // Replaces the TPU kernels repro/kernels/flash_decode.py::flash_decode_pallas
-// (_decode_kernel), its log-sum-exp epilogue combine_partials, and
-// flash_decode_paged (_paged_decode_kernel).  The contiguous and the paged
-// decode are one kernel: where key t of row b lives is a template policy
-// (ContiguousKeys, PagedKeys), and everything else -- the key loop, the
-// softmax, the PV sum and the combine -- is shared.  So with the same split
-// length the paged kernel on a pool is bit-equal to the contiguous kernel
-// on the gathered view.
+// (_decode_kernel), its log-sum-exp epilogue combine_partials,
+// flash_decode_paged (_paged_decode_kernel) and flash_decode_pallas_quant
+// (_decode_kernel_quant).  They are one kernel: where key t of row b lives is
+// a template policy (ContiguousKeys, PagedKeys), the K/V element type another
+// (bf16, or int8 / fp8 e4m3 with one f32 scale per (token, kv head)), and
+// everything else -- the key loop, the softmax, the PV sum and the combine --
+// is shared.  So with the same split length the paged kernel on a pool is
+// bit-equal to the contiguous kernel on the gathered view, and the quantized
+// kernel with every scale 1 is bit-equal to the bf16 kernel on the same
+// values widened to bf16 (every int8 and e4m3 value is exact in bf16).
+//
+// Quantized K/V: each loaded row is widened to f32 and multiplied by its
+// scale before the dot product and before the PV sum, as the reference twin
+// quant.flash_decode_quant_ref dequantizes before its decode; a masked key's
+// row and scale are never read.  The cache bytes per key fall from 2 D to
+// D + 4 per tensor, so the byte bound falls by about half.
 //
 // Paged addressing: key t of row b is offset t % BS of pool block
 // bt[b, t / BS].  An unmapped entry (-1) gives the key position -1, so it
@@ -44,11 +53,15 @@
 //    the combine; a row with no valid key anywhere comes out as zeros.
 //
 // Numerics follow the reference: f32 scores, tanh softcap, masked score
-// NEG_INF, p = exp(s - m) in f32 for l and rounded to bf16 for the PV sum.
+// NEG_INF, p = exp(s - m) in f32 for l and rounded to bf16 (q's dtype) for
+// the PV sum, also over dequantized f32 K/V, as the reference twins do.
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -83,6 +96,23 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
     out[0] = f.x;
     out[1] = f.y;
   }
+}
+
+// Load policy of the one-byte element types (int8_t, __nv_fp8_e4m3): VEC
+// consecutive elements in one vector load of VEC bytes, widened to f32.
+template <int VEC> struct ByteVec;
+template <> struct ByteVec<8> { using type = uint2; };
+template <> struct ByteVec<4> { using type = uint32_t; };
+template <> struct ByteVec<2> { using type = uint16_t; };
+
+template <int VEC, class E>
+__device__ __forceinline__ void load_row(const E* p, float* out) {
+  static_assert(sizeof(E) == 1, "one-byte K/V elements");
+  using Raw = typename ByteVec<VEC>::type;
+  const Raw raw = *reinterpret_cast<const Raw*>(p);
+  const E* e = reinterpret_cast<const E*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) out[i] = static_cast<float>(e[i]);
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -131,16 +161,20 @@ struct PagedKeys {                   // pools (NB, BS, K, D); kp (NB, BS); bt (B
 
 // One block per (split, kv head, row) over T keys per row.  Shared memory:
 // scores/probabilities [G][chunk], the cross-warp reduction buffer [G][D],
-// and per key the K/V row index, -1 for a masked key [chunk].
-template <int D, int G, class Keys>
+// and per key the K/V row index, -1 for a masked key [chunk].  E is the K/V
+// element type; for int8 and fp8, k_scale and v_scale hold one f32 per
+// (row index, kv head), laid out like the K/V rows with D dropped.
+template <int D, int G, class E, class Keys>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+                      const E* __restrict__ k, const E* __restrict__ v,
+                      const float* __restrict__ k_scale,
+                      const float* __restrict__ v_scale,
                       const int* __restrict__ q_pos, const Keys keys,
                       float* __restrict__ o_part, float* __restrict__ m_part,
                       float* __restrict__ l_part, int T, int K, int chunk,
                       int causal, int window, float softcap, float scale) {
+  constexpr bool kQuant = !std::is_same<E, __nv_bfloat16>::value;
   constexpr int VEC = D / 32;
   constexpr int U = 4;                 // keys in flight per warp
   extern __shared__ float smem[];
@@ -156,8 +190,8 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
   const int qp = q_pos[b];
   const int H = K * G;
   const size_t row_stride = (size_t)K * D;
-  const __nv_bfloat16* kbase = k + (size_t)kh * D + lane * VEC;
-  const __nv_bfloat16* vbase = v + (size_t)kh * D + lane * VEC;
+  const E* kbase = k + (size_t)kh * D + lane * VEC;
+  const E* vbase = v + (size_t)kh * D + lane * VEC;
 
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int t = t0 + i;
@@ -173,11 +207,13 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
     for (int g = 0; g < G; ++g)
       load_row<VEC>(q + ((size_t)b * H + kh * G + g) * D + lane * VEC, qreg[g]);
     for (int i0 = warp * U; i0 < n; i0 += kWarps * U) {
-      float kr[U][VEC];
+      float kr[U][VEC], ks[U];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (i0 + u < n && rows[i0 + u] >= 0)
+        if (i0 + u < n && rows[i0 + u] >= 0) {
           load_row<VEC>(kbase + (size_t)rows[i0 + u] * row_stride, kr[u]);
+          if constexpr (kQuant) ks[u] = k_scale[(size_t)rows[i0 + u] * K + kh];
+        }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int i = i0 + u;
@@ -185,6 +221,10 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
         if (rows[i] < 0) {
           if (lane < G) s_buf[lane * chunk + i] = -INFINITY;
           continue;
+        }
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kr[u][e] *= ks[u];
         }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
@@ -228,16 +268,22 @@ decode_partial_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   for (int i0 = warp * U; i0 < n; i0 += kWarps * U) {
-    float vr[U][VEC];
+    float vr[U][VEC], vs[U];
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (i0 + u < n && rows[i0 + u] >= 0)
+      if (i0 + u < n && rows[i0 + u] >= 0) {
         load_row<VEC>(vbase + (size_t)rows[i0 + u] * row_stride, vr[u]);
+        if constexpr (kQuant) vs[u] = v_scale[(size_t)rows[i0 + u] * K + kh];
+      }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = i0 + u;
       if (i >= n) break;
       if (rows[i] < 0) continue;
+      if constexpr (kQuant) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) vr[u][e] *= vs[u];
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = s_buf[g * chunk + i];
@@ -307,8 +353,9 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
   out[((size_t)bk * G + g) * D + e] = __float2bfloat16(acc / fmaxf(l_star, 1e-30f));
 }
 
-template <int D, int G, class Keys>
+template <int D, int G, class E, class Keys>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* k_scale, const void* v_scale,
                    const void* q_pos, Keys keys, void* o_part, void* m_part,
                    void* l_part, void* out, int B, int T, int K, int chunk,
                    int splits, int causal, int window, float softcap,
@@ -318,16 +365,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   static size_t smem_set = 0;          // per instantiation: raise once
   cudaError_t err;
   if (smem > smem_set) {
-    err = cudaFuncSetAttribute(decode_partial_kernel<D, G, Keys>,
+    err = cudaFuncSetAttribute(decode_partial_kernel<D, G, E, Keys>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
   dim3 grid(splits, K, B);
-  decode_partial_kernel<D, G, Keys><<<grid, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)q_pos, keys, (float*)o_part,
+  decode_partial_kernel<D, G, E, Keys><<<grid, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const E*)k, (const E*)v,
+      (const float*)k_scale, (const float*)v_scale, (const int*)q_pos, keys,
+      (float*)o_part,
       (float*)m_part, (float*)l_part, T, K, chunk, causal, window, softcap,
       1.0f / sqrtf((float)D));
   err = cudaGetLastError();
@@ -338,18 +386,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <class Keys>
+template <class E, class Keys>
 int launch_dg(int D, int G, const void* q, const void* k, const void* v,
-              const void* q_pos, Keys keys, void* o_part, void* m_part,
-              void* l_part, void* out, int B, int T, int K, int chunk,
-              int splits, int causal, int window, float softcap,
-              void* stream) {
+              const void* k_scale, const void* v_scale, const void* q_pos,
+              Keys keys, void* o_part, void* m_part, void* l_part, void* out,
+              int B, int T, int K, int chunk, int splits, int causal,
+              int window, float softcap, void* stream) {
 #define REPRO_DG(d, g)                                                     \
   if (D == d && G == g)                                                    \
-    return (int)launch<d, g, Keys>(q, k, v, q_pos, keys, o_part, m_part,   \
-                                   l_part, out, B, T, K, chunk, splits,    \
-                                   causal, window, softcap,                \
-                                   (cudaStream_t)stream);
+    return (int)launch<d, g, E, Keys>(q, k, v, k_scale, v_scale, q_pos,    \
+                                      keys, o_part, m_part, l_part, out,  \
+                                      B, T, K, chunk, splits, causal,     \
+                                      window, softcap,                    \
+                                      (cudaStream_t)stream);
 #define REPRO_D(d) \
   REPRO_DG(d, 1) REPRO_DG(d, 2) REPRO_DG(d, 4) REPRO_DG(d, 8) REPRO_DG(d, 16)
   REPRO_D(64)
@@ -372,8 +421,10 @@ extern "C" int repro_flash_decode_bf16(
     int B, int T, int K, int G, int D, int chunk, int splits, int causal,
     int window, float softcap, void* stream) {
   const ContiguousKeys keys{(const int*)k_pos, T};
-  return launch_dg(D, G, q, k, v, q_pos, keys, o_part, m_part, l_part, out,
-                   B, T, K, chunk, splits, causal, window, softcap, stream);
+  return launch_dg<__nv_bfloat16>(D, G, q, k, v, nullptr, nullptr, q_pos,
+                                  keys, o_part, m_part, l_part, out, B, T, K,
+                                  chunk, splits, causal, window, softcap,
+                                  stream);
 }
 
 // As repro_flash_decode_bf16, with K/V read through block tables:
@@ -387,7 +438,35 @@ extern "C" int repro_flash_decode_paged_bf16(
     int chunk, int splits, int causal, int window, float softcap,
     void* stream) {
   const PagedKeys keys{(const int*)kp_pool, (const int*)bt, MAXB, BS};
-  return launch_dg(D, G, q, k_pool, v_pool, q_pos, keys, o_part, m_part,
-                   l_part, out, B, MAXB * BS, K, chunk, splits, causal,
-                   window, softcap, stream);
+  return launch_dg<__nv_bfloat16>(D, G, q, k_pool, v_pool, nullptr, nullptr,
+                                  q_pos, keys, o_part, m_part, l_part, out, B,
+                                  MAXB * BS, K, chunk, splits, causal, window,
+                                  softcap, stream);
+}
+
+// As repro_flash_decode_bf16, over a quantized cache: kq, vq (B, T, K, D)
+// int8 (_int8) or fp8 e4m3 (_fp8); k_scale, v_scale (B, T, K) f32 contiguous.
+extern "C" int repro_flash_decode_quant_int8(
+    const void* q, const void* kq, const void* vq, const void* q_pos,
+    const void* k_pos, const void* k_scale, const void* v_scale, void* o_part,
+    void* m_part, void* l_part, void* out, int B, int T, int K, int G, int D,
+    int chunk, int splits, int causal, int window, float softcap,
+    void* stream) {
+  const ContiguousKeys keys{(const int*)k_pos, T};
+  return launch_dg<int8_t>(D, G, q, kq, vq, k_scale, v_scale, q_pos, keys,
+                           o_part, m_part, l_part, out, B, T, K, chunk,
+                           splits, causal, window, softcap, stream);
+}
+
+extern "C" int repro_flash_decode_quant_fp8(
+    const void* q, const void* kq, const void* vq, const void* q_pos,
+    const void* k_pos, const void* k_scale, const void* v_scale, void* o_part,
+    void* m_part, void* l_part, void* out, int B, int T, int K, int G, int D,
+    int chunk, int splits, int causal, int window, float softcap,
+    void* stream) {
+  const ContiguousKeys keys{(const int*)k_pos, T};
+  return launch_dg<__nv_fp8_e4m3>(D, G, q, kq, vq, k_scale, v_scale, q_pos,
+                                  keys, o_part, m_part, l_part, out, B, T, K,
+                                  chunk, splits, causal, window, softcap,
+                                  stream);
 }

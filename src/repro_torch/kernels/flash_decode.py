@@ -1,14 +1,16 @@
 """Wrappers of the grouped split-KV flash-decode CUDA kernel
-(``csrc/flash_decode.cu``), contiguous and paged.
+(``csrc/flash_decode.cu``): contiguous, paged and quantized.
 
 ``flash_decode`` replaces the TPU kernel
 ``repro.kernels.flash_decode.flash_decode_pallas``; ``flash_decode_paged``
 replaces ``flash_decode_paged``, the same decode read through per-row
-block tables into a global block pool.  Each launches its kernel on CUDA
-tensors and raises on anything else; ``kernels.ops`` sends CPU tensors
-to the plain versions ``kernels.ref.flash_decode_ref`` and
-``flash_decode_paged_ref``.  ``flash_decode.launches`` and
-``flash_decode_paged.launches`` count the launches.
+block tables into a global block pool; ``flash_decode_quant`` replaces
+``flash_decode_pallas_quant``, the contiguous decode over an int8 or fp8
+cache with f32 scales per (token, kv head).  Each launches its kernel on
+CUDA tensors and raises on anything else; ``kernels.ops`` sends CPU
+tensors to the plain versions ``kernels.ref.flash_decode_ref``,
+``flash_decode_paged_ref`` and ``kernels.quant.flash_decode_quant_ref``.
+Each wrapper's ``.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -23,7 +25,11 @@ GROUPS = (1, 2, 4, 8, 16)
 MAX_CHUNK = 512
 _ARGTYPES = {  # pointers, ints, then softcap and the stream
     "repro_flash_decode_bf16": (9, 9),
-    "repro_flash_decode_paged_bf16": (10, 10)}
+    "repro_flash_decode_paged_bf16": (10, 10),
+    "repro_flash_decode_quant_int8": (11, 9),
+    "repro_flash_decode_quant_fp8": (11, 9)}
+_QUANT_ENTRY = {torch.int8: "repro_flash_decode_quant_int8",
+                torch.float8_e4m3fn: "repro_flash_decode_quant_fp8"}
 _fns = {}
 
 
@@ -83,6 +89,49 @@ def flash_decode(q, k, v, q_pos, k_pos, *, causal=True, window=None,
     if rc:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
     flash_decode.launches += 1
+    return out
+
+
+def flash_decode_quant(q, kq, vq, q_pos, k_pos, k_scale, v_scale, *,
+                       causal=True, window=None, softcap=None):
+    """q: (B, 1, H, d) bf16; kq, vq: (B, T, K, d) int8 or float8_e4m3fn
+    (the same dtype); k_pos: (B, T) int32 with -1 = empty; k_scale,
+    v_scale: (B, T, K) f32, one scale per (token, kv head).  Returns
+    (B, 1, H, d) bf16.  Same split length as ``flash_decode``, so with
+    every scale 1 it is bit-equal to ``flash_decode`` on kq, vq widened to
+    bf16."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_decode_quant launches a CUDA kernel: tensors "
+                         f"must be on a CUDA device, got {q.device}")
+    B, S, H, d = q.shape
+    T, K = kq.shape[1], kq.shape[2]
+    if S != 1 or H % K or d not in HEAD_DIMS or H // K not in GROUPS:
+        raise ValueError(f"flash_decode_quant takes S=1, d in {HEAD_DIMS} "
+                         f"and H/K in {GROUPS} (got S={S}, H={H}, K={K}, "
+                         f"d={d})")
+    if kq.dtype not in _QUANT_ENTRY:
+        raise ValueError(f"flash_decode_quant: kq must be int8 or "
+                         f"float8_e4m3fn, got {kq.dtype}")
+    dev, i32, f32 = q.device, torch.int32, torch.float32
+    _check("q", q, torch.bfloat16, (B, 1, H, d), dev)
+    _check("kq", kq, kq.dtype, (B, T, K, d), dev)
+    _check("vq", vq, kq.dtype, (B, T, K, d), dev)
+    _check("q_pos", q_pos, i32, (B,), dev)
+    _check("k_pos", k_pos, i32, (B, T), dev)
+    _check("k_scale", k_scale, f32, (B, T, K), dev)
+    _check("v_scale", v_scale, f32, (B, T, K), dev)
+    window, chunk, splits, parts, out = _launch_args(q, K, T, window, softcap)
+    with torch.cuda.device(dev):
+        rc = _kernel(_QUANT_ENTRY[kq.dtype])(
+            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            *(t.data_ptr() for t in parts), out.data_ptr(), B, T, K, H // K,
+            d, chunk, splits, int(causal), window, float(softcap or 0.0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(
+            f"flash_decode_quant kernel launch failed: cudaError {rc}")
+    flash_decode_quant.launches += 1
     return out
 
 
@@ -152,3 +201,4 @@ def _launch_args(q, K, T, window, softcap):
 
 flash_decode.launches = 0
 flash_decode_paged.launches = 0
+flash_decode_quant.launches = 0

@@ -5,8 +5,10 @@ These are the CPU path of ``kernels.ops`` and the oracle that
 follow the reference twins in ``repro.kernels.ref`` (``flash_decode_ref``,
 the forward of ``flash_attention_ref``, ``flash_decode_paged_ref``) and
 ``combine_partials`` of ``repro.kernels.flash_decode``, rounding to the input dtype at the same
-points: scores and softmax statistics are f32, and ``p`` is cast to V's
-dtype before the PV product.
+points: scores and softmax statistics are f32, and ``p`` is cast to the
+query's dtype before the PV product (in the decode; to V's in the
+forward), so a decode over f32 dequantized K/V still rounds ``p`` to bf16,
+as ``repro.kernels.quant.flash_decode_quant_ref`` does.
 
 A query row with no valid key differs between the two on purpose, as in
 the reference: decode returns zeros for it, the multi-token forward the
@@ -69,7 +71,7 @@ def flash_decode_partials(q, k, v, q_pos, k_pos, *, causal=True, window=None,
         else:
             m = torch.full(s.shape[:-1], NEG_INF, dtype=s.dtype)
         p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
-        accs.append(torch.einsum("bkgt,btkd->bkgd", p.to(v.dtype).float(),
+        accs.append(torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype).float(),
                                  vc.float()))
         ms.append(m)
         ls.append(p.sum(-1))

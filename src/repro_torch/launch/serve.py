@@ -7,6 +7,7 @@ metrics (queue wait / TTFT / TPOT).  Runs on the card unless
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         --requests 8 --slots 4 --max-new 32 [--no-reduced] [--device cpu] \
+        [--kv-dtype {bf16,int8,fp8}] \
         [--block-size 16 [--num-blocks N] [--no-prefix-cache]]
 
 ``--reduced`` is on by default; ``--no-reduced`` serves the published
@@ -50,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True,
                     help="paged KV: share prompt-prefix blocks across "
                          "requests (default on)")
+    ap.add_argument("--kv-dtype", default="bf16",
+                    choices=["bf16", "int8", "fp8"],
+                    help="KV cache storage: bf16, or int8/fp8 quantized with "
+                         "f32 per-(token, head) scales (contiguous cache "
+                         "only)")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -72,8 +78,8 @@ def main(argv=None) -> int:
                     prefill_len=args.prefill_len, cache_len=args.cache_len,
                     prefill_chunk=args.prefill_chunk,
                     block_size=args.block_size, num_blocks=args.num_blocks,
-                    prefix_cache=args.prefix_cache, telemetry=telemetry,
-                    device=args.device)
+                    prefix_cache=args.prefix_cache, kv_dtype=args.kv_dtype,
+                    telemetry=telemetry, device=args.device)
     rng = np.random.default_rng(args.seed)
     on_token = None
     if args.stream:
@@ -87,8 +93,9 @@ def main(argv=None) -> int:
             seed=args.seed + i, max_new_tokens=args.max_new), on_token=on_token)
     results = engine.run(max_ticks=100_000)
     print(f"{cfg.name} on {model.device}: {len(results)} requests, "
-          f"slots={args.slots}, ticks={engine.ticks} "
-          f"({engine.kv_bytes_per_token} KV B/token)")
+          f"slots={args.slots}, ticks={engine.ticks}, "
+          f"kv_dtype={engine.kv_dtype} ({engine.kv_bytes_per_token} KV "
+          f"B/token)")
     for rid in sorted(results):
         r = results[rid]
         m = r.metrics

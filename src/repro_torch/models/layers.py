@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import Activation, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import dequantize_kv
 from repro_torch.kernels.ref import gather_paged_kv  # noqa: F401 (re-export)
 
 NEG_INF = -1e30
@@ -70,11 +71,14 @@ def attention(p: Dict, x, cfg: ModelConfig, *, positions,
     card), fewer the dense plain path, as in the reference.  With
     ``cache_kv = (k, v, k_pos)`` (decode; the new K/V already written)
     attention reads the cache at the native kv-head count through the
-    decode kernel.  With ``cache_kv = (k_pool, v_pool, kp_pool,
-    block_tables)`` (paged; the new K/V already written) one query token
-    takes the paged decode kernel, and more (a suffix prefill) the flash
-    path over ``gather_paged_kv``'s contiguous view, whatever the length,
-    as in the reference.
+    decode kernel.  With ``cache_kv = (k, v, k_pos, k_scale, v_scale)``
+    (an int8 or fp8 cache with f32 scales per (token, kv head)) one query
+    token takes the quantized decode kernel, and more dequantize the cache
+    to the compute dtype first, as in the reference.  With ``cache_kv =
+    (k_pool, v_pool, kp_pool, block_tables)`` (paged; the new K/V already
+    written) one query token takes the paged decode kernel, and more (a
+    suffix prefill) the flash path over ``gather_paged_kv``'s contiguous
+    view, whatever the length, as in the reference.
 
     Returns (y (B, S, D), (k, v)): the projected, rotated K/V of the
     no-cache path (what prefill stores), else None."""
@@ -84,12 +88,18 @@ def attention(p: Dict, x, cfg: ModelConfig, *, positions,
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
-    kv = None
+    kv = k_scale = v_scale = None
     if cache_kv is None:
         k, v = project_kv(p, x, cfg, positions)
         kv, k_pos = (k, v), positions
     elif len(cache_kv) == 3:
         k, v, k_pos = cache_kv
+    elif len(cache_kv) == 5:
+        k, v, k_pos, k_scale, v_scale = cache_kv
+        if q.shape[1] > 1:
+            k = dequantize_kv(k, k_scale).to(q.dtype)
+            v = dequantize_kv(v, v_scale).to(q.dtype)
+            k_scale = v_scale = None
     elif q.shape[1] == 1:
         k_pool, v_pool, kp_pool, bt = cache_kv
         out = ops.flash_decode_paged(q, k_pool, v_pool, positions, kp_pool,
@@ -100,7 +110,8 @@ def attention(p: Dict, x, cfg: ModelConfig, *, positions,
     T = k.shape[1]
     if cache_kv is not None or T > CHUNKED_THRESHOLD:
         out = ops.flash_attention(q, k, v, positions, k_pos,
-                                  softcap=cfg.logit_softcap)
+                                  softcap=cfg.logit_softcap, k_scale=k_scale,
+                                  v_scale=v_scale)
     else:
         k = k.repeat_interleave(H // K, dim=2)
         v = v.repeat_interleave(H // K, dim=2)

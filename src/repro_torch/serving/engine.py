@@ -11,8 +11,10 @@ the card); a request finishes on EOS or max_new_tokens (FINISHED) or by
 With ``block_size`` the cache is paged: a global pool of blocks behind a
 ``BlockPool``, admission by free blocks, prompt prefixes shared across
 requests (only the suffix is prefilled, through ``prefix_prefill``) and
-the paged decode kernel on every tick.  Quantized KV and parallelism
-plans of the reference are not ported yet.
+the paged decode kernel on every tick.  ``kv_dtype="int8"`` or ``"fp8"``
+stores the contiguous cache quantized (the quantized decode kernel on
+every tick).  A paged quantized cache and the reference's parallelism
+plans are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.telemetry import ServingTelemetry
+from repro_torch.kernels import quant as Q
 from repro_torch.serving.request import (GenerationResult, InferenceRequest,
                                          RequestState, TokenCallback)
 from repro_torch.serving.paged import BlockPool
@@ -64,9 +67,6 @@ class Engine:
                  kv_dtype: Optional[str] = None,
                  telemetry: Optional[ServingTelemetry] = None,
                  plan=None, device="cuda", clock=time.monotonic):
-        if kv_dtype not in (None, "bf16"):
-            raise NotImplementedError("quantized KV is not ported yet: it is "
-                                      "slice 3 (ROADMAP.md queue 1, item 7)")
         if plan is not None:
             raise NotImplementedError("parallelism plans are not ported yet "
                                       "(ROADMAP.md queue 1, item 13)")
@@ -78,7 +78,8 @@ class Engine:
                              f"cache_len {cache_len}")
         self.model, self.params, self.cfg = model, params, model.cfg
         self.device = model.device
-        self.kv_dtype = "bf16"
+        # an explicit kv_dtype overrides the model's, as in the reference
+        self.kv_dtype = model.kv_dtype if kv_dtype is None else kv_dtype
         self.slots = slots
         self.prefill_len = prefill_len
         self.cache_len = cache_len
@@ -95,7 +96,8 @@ class Engine:
             self.num_blocks = (int(num_blocks) if num_blocks is not None
                                else slots * self.max_blocks)
             self.cache = model.init_cache(
-                slots, cache_len, paged=(self.num_blocks, self.block_size))
+                slots, cache_len, paged=(self.num_blocks, self.block_size),
+                kv_dtype=self.kv_dtype)
             self.pool = BlockPool(
                 slots, num_blocks=self.num_blocks,
                 block_size=self.block_size,
@@ -105,8 +107,12 @@ class Engine:
             if num_blocks is not None:
                 raise ValueError("num_blocks needs block_size")
             self.block_size = self.num_blocks = None
-            self.cache = model.init_cache(slots, cache_len)
+            self.cache = model.init_cache(slots, cache_len,
+                                          kv_dtype=self.kv_dtype)
             self.pool = SlotPool(slots)
+        # set once the cache is made (init_cache refuses what is not
+        # ported): prefill quantizes by the model's kv_dtype
+        model.kv_dtype = self.kv_dtype
         self.queue: List[InferenceRequest] = []
         self.requests: Dict[int, InferenceRequest] = {}
         self.finished: Dict[int, GenerationResult] = {}
@@ -266,9 +272,12 @@ class Engine:
 
     @property
     def kv_bytes_per_token(self) -> int:
-        """K+V bytes one cached token costs over all layers (bf16)."""
+        """K+V bytes one cached token costs over all layers, byte-true for
+        the engine's kv_dtype: a quantized cache charges its narrow payload
+        and the f32 scale of each (token, head) vector."""
         cfg = self.cfg
-        return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+        return cfg.num_layers * 2 * cfg.num_kv_heads * Q.kv_bytes_per_vector(
+            cfg.head_dim, self.kv_dtype)
 
     def _account(self, slot: int, req: InferenceRequest):
         bpt = self.kv_bytes_per_token

@@ -48,16 +48,21 @@ class SlotPool:
                         slot: int) -> Dict:
         """Write a batch=1 prefill cache into row ``slot`` of the pool.
 
-        Unlike the reference, which builds a new pool, the row is written
-        IN PLACE into the preallocated cache tensors: the prefill's
-        columns, then -1 positions and zero K/V to the end of the row."""
-        for key in ("k", "v", "pos"):
-            pool, one = pool_cache[key], cache1[key]
+        Every leaf but ``len`` is copied (a quantized cache's scales with
+        its K/V), as in the reference.  Unlike the reference, which builds
+        a new pool, the row is written IN PLACE into the preallocated cache
+        tensors: the prefill's columns, then, to the end of the row, -1 in
+        integer leaves (positions, and int8 K/V as in the reference) and 0
+        in the others."""
+        for key, pool in pool_cache.items():
+            if key == "len":
+                continue
+            one = cache1[key]
             S = one.shape[2]
             if S > pool.shape[2]:
                 raise ValueError(f"prefill cache leaf {key!r} longer than "
                                  f"pool ({S} > {pool.shape[2]}); raise "
                                  "cache_len")
             pool[:, slot, :S] = one[:, 0]
-            pool[:, slot, S:] = -1 if key == "pos" else 0
+            pool[:, slot, S:] = 0 if pool.dtype.is_floating_point else -1
         return pool_cache

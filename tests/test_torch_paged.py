@@ -604,5 +604,5 @@ def test_engine_paged_kv_accounting_and_stats(models):
 
 def test_engine_paged_rejects_quantized_kv(models):
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 4"):
         Engine(tm, tp, block_size=16, kv_dtype="int8", device="cpu")

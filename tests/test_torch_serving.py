@@ -175,7 +175,10 @@ def test_engine_lifecycle_cancel_and_stats(models):
     s = e.stats()
     assert s["finished"] == 1 and s["cancelled"] == 1
     assert s["output_tokens"] == 4
-    for kw in ({"kv_dtype": "int8"}, {"plan": "auto"}):
-        with pytest.raises(NotImplementedError):
-            Engine(tm, tp, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(tm, tp, device="cpu", plan="auto")
+    try:
+        assert Engine(tm, tp, device="cpu", kv_dtype="int8").kv_dtype == "int8"
+    finally:
+        tm.kv_dtype = "bf16"          # the engine pins the model's kv_dtype
     assert Engine(tm, tp, device="cpu", block_size=16).paged
